@@ -30,7 +30,9 @@ setup(
         'jax', 'numpy', 'scipy', 'pyyaml', 'h5py'],
     entry_points={'console_scripts': [
         'speech-features = shennong_tpu.cli:main']},
-    package_data={'shennong_tpu': [
-        'share/crepe/*.npz', 'native/*.cpp']},
+    package_data={
+        'shennong_tpu': ['share/crepe/*.npz', 'native/*.cpp'],
+        # the PyTorch port builds its CUDA kernels from these
+        'shennong_tpu_torch': ['csrc/*.cu']},
     zip_safe=True,
 )

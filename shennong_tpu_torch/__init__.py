@@ -1,0 +1,36 @@
+"""shennong_tpu_torch: the PyTorch and CUDA port of shennong_tpu.
+
+The port runs the feature extraction stack of :mod:`shennong_tpu` on
+PyTorch, with the pitch Viterbi written by hand in CUDA for NVIDIA
+Hopper (``csrc/viterbi.cu``). Module names mirror the JAX package
+(``ops/framing.py`` here is the counterpart of
+``shennong_tpu/ops/framing.py``) so each function can be held against
+its reference.
+
+The device is always explicit: processors, the fused pass-1 program
+and :func:`shennong_tpu_torch.pipeline.extract_features` take a
+``device`` argument, and nothing falls back to the CPU when CUDA is
+missing. Float32 matmuls and convolutions run in full float32 (TF32
+off), the counterpart of the reference's ``Precision.HIGHEST``.
+
+The framework-free host layer (audio IO, features containers,
+serializers, utterance indexes) is shared with :mod:`shennong_tpu`.
+"""
+
+import torch
+
+from shennong_tpu.audio import Audio
+from shennong_tpu.features import Features
+from shennong_tpu.features_collection import FeaturesCollection
+from shennong_tpu.utterances import Utterance, Utterances
+
+__version__ = '0.1'
+
+# the reference pins Precision.HIGHEST on its parity-critical matmuls
+# (shennong_tpu/ops/pitch.py:205,404,429); cuDNN defaults to TF32
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision('highest')
+
+__all__ = ['Audio', 'Features', 'FeaturesCollection', 'Utterance',
+           'Utterances']

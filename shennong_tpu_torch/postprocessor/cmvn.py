@@ -1,0 +1,180 @@
+"""Cepstral mean/variance normalization post-processor.
+
+Counterpart of :class:`shennong_tpu.postprocessor.cmvn.CmvnPostProcessor`
+and :func:`~shennong_tpu.postprocessor.cmvn.apply_cmvn`. Statistics
+accumulation is an associative float64 reduction and the application
+a per-dimension affine transform, both on the host. The sliding-window
+variant is not yet ported.
+"""
+
+import numpy as np
+
+from shennong_tpu.features import Features
+from shennong_tpu.features_collection import FeaturesCollection
+from shennong_tpu_torch.ops import postops
+from shennong_tpu_torch.postprocessor.base import FeaturesPostProcessor
+
+
+class CmvnPostProcessor(FeaturesPostProcessor):
+    """Accumulates and applies CMVN statistics over features.
+
+    Parameters
+    ----------
+    dim : int
+        The features dimension, must be strictly positive
+    stats : array, shape = [2, dim+1], optional
+        Pre-accumulated CMVN statistics (see :func:`stats`)
+    """
+
+    def __init__(self, dim, stats=None):
+        super().__init__()
+
+        if not isinstance(dim, int) or dim <= 0:
+            raise ValueError(
+                'dimension must be a strictly positive integer, it is {}'
+                .format(dim))
+        self._dim = dim
+
+        if stats is not None:
+            stats = np.asarray(stats, dtype=np.float64)
+            if stats.shape != (2, dim + 1):
+                raise ValueError(
+                    'stats must be an array of shape {}, but is shaped as {}'
+                    .format((2, dim + 1), stats.shape))
+            self._stats = stats.copy()
+        else:
+            self._stats = np.zeros((2, dim + 1))
+
+    @property
+    def name(self):
+        return 'cmvn'
+
+    @property
+    def dim(self):
+        """The dimension of features on which to compute CMVN"""
+        return self._dim
+
+    @property
+    def stats(self):
+        """The accumulated CMVN statistics, shape [2, dim+1].
+
+        Row 0 holds the per-dimension weighted sums with the total
+        frame weight in the last column; row 1 holds the weighted sums
+        of squares.
+        """
+        return self._stats
+
+    @property
+    def count(self):
+        """The weighted total count of accumulated features frames"""
+        return self._stats[0, -1]
+
+    @property
+    def ndims(self):
+        return self.dim
+
+    def get_properties(self, features):
+        properties = super().get_properties(features)
+        # a copy: later accumulate() calls update self._stats in
+        # place and must not retroactively rewrite the provenance of
+        # already-returned Features
+        properties[self.name]['stats'] = np.array(self.stats)
+        return properties
+
+    def accumulate(self, features, weights=None):
+        """Add the statistics of ``features`` to the accumulator.
+
+        ``weights`` optionally weighs each frame (e.g. a VAD mask to
+        exclude silences).
+        """
+        if weights is not None:
+            weights = np.asarray(weights)
+            if weights.ndim != 1:
+                raise ValueError(
+                    'weights must have a single dimension but have {}'
+                    .format(weights.ndim))
+            if weights.shape[0] != features.nframes:
+                raise ValueError(
+                    'there is {} weights but {} feature frames, must be equal'
+                    .format(weights.shape[0], features.nframes))
+
+        self._stats += postops.accumulate_cmvn_stats(
+            features.data, weights=weights)
+
+    def process(self, features, norm_vars=True, skip_dims=None,
+                reverse=False):
+        """Normalize ``features`` with the accumulated statistics.
+
+        ``norm_vars`` additionally normalizes the variance,
+        ``skip_dims`` lists dimensions to leave untouched, ``reverse``
+        applies the inverse transform.
+        """
+        if self.count < 1.0:
+            raise ValueError(
+                'insufficient accumulation of stats for CMVN, '
+                'must be >= 1.0 but is {}'.format(self.count))
+
+        if features.ndims != self.dim:
+            raise ValueError(
+                'features have {} dimensions but the accumulated '
+                'statistics have {}'.format(features.ndims, self.dim))
+
+        if skip_dims:
+            dmin, dmax = min(skip_dims), max(skip_dims)
+            if dmin < 0 or dmax >= self.dim:
+                raise ValueError(
+                    'skipped dimensions must be in [0, {}[ but are in '
+                    '[{}, {}['.format(self.dim, dmin, dmax))
+
+        data = postops.apply_cmvn(
+            features.data, self._stats, norm_vars=norm_vars,
+            skip_dims=skip_dims, reverse=reverse)
+
+        return Features(
+            data, features.times,
+            properties=self.get_properties(features))
+
+
+def apply_cmvn(feats_collection, by_collection=True, norm_vars=True,
+               weights=None, skip_dims=None):
+    """CMVN normalization of a whole features collection.
+
+    With ``by_collection`` the statistics are pooled over the entire
+    collection; otherwise each features is normalized independently.
+    """
+    dims = set(f.ndims for f in feats_collection.values())
+    if len(dims) != 1:
+        raise ValueError(
+            'features in the collection must have consistent dimensions '
+            'but dimensions are: {}'.format(sorted(dims)))
+    dim = dims.pop()
+
+    if weights is not None and weights.keys() != feats_collection.keys():
+        raise ValueError('keys differ for weights and features collection')
+
+    if skip_dims is not None:
+        sdmin, sdmax = min(skip_dims), max(skip_dims)
+        if sdmin < 0 or sdmax >= dim:
+            raise ValueError(
+                'out of bounds dimensions in skip_dims, must be in [0, {}] '
+                'but are in [{}, {}]'.format(dim - 1, sdmin, sdmax))
+
+    def weight_of(key):
+        return weights[key] if weights is not None else None
+
+    if by_collection:
+        cmvn = CmvnPostProcessor(dim)
+        for key, feats in feats_collection.items():
+            cmvn.accumulate(feats, weights=weight_of(key))
+        return FeaturesCollection({
+            key: cmvn.process(
+                feats, norm_vars=norm_vars, skip_dims=skip_dims)
+            for key, feats in feats_collection.items()})
+
+    out = FeaturesCollection()
+    for key, feats in feats_collection.items():
+        cmvn = CmvnPostProcessor(feats.ndims)
+        cmvn.accumulate(feats, weights=weight_of(key))
+        out[key] = cmvn.process(
+            feats, norm_vars=norm_vars, skip_dims=skip_dims)
+    return out

@@ -1,0 +1,25 @@
+"""Speech feature extraction processors (Audio -> Features).
+
+The processors ported so far: MFCC, frame energy and Kaldi pitch with
+its post-processor. Imports are lazy (PEP 562), as in
+:mod:`shennong_tpu.processor`.
+"""
+
+_REGISTRY = {
+    'MfccProcessor': 'mfcc',
+    'EnergyProcessor': 'energy',
+    'KaldiPitchProcessor': 'pitch_kaldi',
+    'KaldiPitchPostProcessor': 'pitch_kaldi',
+}
+
+__all__ = sorted(_REGISTRY)
+
+
+def __getattr__(name):
+    if name in _REGISTRY:
+        import importlib
+        module = importlib.import_module(
+            f'shennong_tpu_torch.processor.{_REGISTRY[name]}')
+        return getattr(module, name)
+    raise AttributeError(
+        f'module {__name__!r} has no attribute {name!r}')

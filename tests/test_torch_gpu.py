@@ -1,0 +1,130 @@
+"""The port's CUDA path on the card (marker ``gpu``; skipped without a
+CUDA device).
+
+This file imports no JAX, so it also runs where JAX is not installed:
+
+    python -m pytest --noconftest -p no:cacheprovider -m gpu \
+        tests/test_torch_gpu.py
+
+The Viterbi kernels are held against their plain PyTorch versions on
+the card (forward history bit-equal over valid frames, lags equal),
+the processors against golden_real.npz (max-abs 1e-3), and the whole
+slice on the card against the same slice on the CPU (max-abs 1e-3,
+every random source at 0).
+"""
+
+import copy
+import math
+import os
+
+import numpy as np
+import pytest
+import scipy.io.wavfile
+import torch
+
+from shennong_tpu.audio import Audio
+from shennong_tpu.utterances import Utterances
+from shennong_tpu_torch import pipeline
+from shennong_tpu_torch.ops import cuda_viterbi
+from shennong_tpu_torch.processor import energy
+from shennong_tpu_torch.processor.energy import EnergyProcessor
+from shennong_tpu_torch.processor.mfcc import MfccProcessor
+from shennong_tpu_torch.processor.pitch_kaldi import (
+    KaldiPitchPostProcessor, KaldiPitchProcessor)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REAL_WAV = os.path.join(REPO, 'tests', 'data', 'test.wav')
+FACTOR = 0.1 * math.log(1.005) ** 2  # the default inter-frame factor
+
+# small and edge shapes (rows of 0 and 1 frames, one frame), and the
+# main path's: 64 utterances of 6 s, 598 pitch frames, 417 lags
+CASES = [
+    ((5, 37, 50), [37, 30, 37, 5, 1]),
+    ((1, 10, 417), [10]),
+    ((8, 64, 130), [64] * 8),
+    ((3, 100, 7), [100, 99, 50]),
+    ((4, 20, 33), [20, 0, 1, 7]),
+    ((2, 1, 417), [1, 0]),
+    ((64, 598, 417), [598] * 32 + [int(n) for n in np.random.RandomState(
+        1).randint(0, 599, 32)]),
+]
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    return torch.device('cuda')
+
+
+@pytest.mark.parametrize('shape,bounds', CASES)
+def test_kernels_match_plain(cuda_device, shape, bounds):
+    rng = np.random.RandomState(0)
+    cost = torch.from_numpy(
+        rng.rand(*shape).astype(np.float32)).to(cuda_device)
+    counts = torch.tensor(bounds, dtype=torch.int32, device=cuda_device)
+
+    cuda_viterbi.reset_launches()
+    hist = cuda_viterbi.viterbi_forward(cost, counts, FACTOR)
+    best = cuda_viterbi.viterbi_backtrace(hist, counts, FACTOR)
+    assert cuda_viterbi.LAUNCHES == {
+        'viterbi_forward': 1, 'viterbi_backtrace': 1}
+    plain = cuda_viterbi.viterbi_forward_plain(cost, counts, FACTOR)
+    best_plain = cuda_viterbi.viterbi_backtrace_plain(plain, counts, FACTOR)
+    torch.cuda.synchronize()
+    for row, bound in enumerate(bounds):
+        valid = max(bound, 1)  # frame 0 is computed for empty rows too
+        assert torch.equal(hist[:valid, row], plain[:valid, row]), row
+        assert torch.equal(best[:bound, row], best_plain[:bound, row]), row
+
+
+def test_processors_golden(cuda_device):
+    audio = Audio.load(REAL_WAV)
+    golden = np.load(os.path.join(REPO, 'tests', 'data', 'golden_real.npz'))
+    pitch = KaldiPitchProcessor().process(audio, device=cuda_device)
+    outputs = {
+        'mfcc': MfccProcessor(dither=0).process(audio, device=cuda_device),
+        'energy': EnergyProcessor(dither=0).process(
+            audio, device=cuda_device),
+        'pitch': pitch,
+        'pitch_post': KaldiPitchPostProcessor(
+            delta_pitch_noise_stddev=0).process(pitch, device=cuda_device),
+    }
+    for name, features in outputs.items():
+        assert features.shape == golden[name].shape, name
+        assert np.abs(features.data - golden[name]).max() < 1e-3, name
+
+
+def test_slice_matches_cpu(cuda_device, tmp_path, monkeypatch):
+    defaults = list(energy.EnergyProcessor.__init__.__defaults__)
+    defaults[3] = 0.0  # the energy VAD's dither
+    monkeypatch.setattr(
+        energy.EnergyProcessor.__init__, '__defaults__', tuple(defaults))
+    entries = [('real', REAL_WAV, 'spk1')]
+    rng = np.random.RandomState(0)
+    for index, nsamples in enumerate([30000, 41000, 25500]):
+        wav = str(tmp_path / f'u{index}.wav')
+        t = np.arange(nsamples) / 16000
+        signal = (np.sin(2 * np.pi * (120 + 20 * index) * t)
+                  * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t))
+                  + 0.05 * rng.randn(nsamples))
+        scipy.io.wavfile.write(
+            wav, 16000, (signal / np.abs(signal).max() * 20000).astype(
+                np.int16))
+        entries.append((f'u{index}', wav, f'spk{1 + index % 2}'))
+    config = pipeline.get_default_config(
+        'mfcc', with_pitch='kaldi', with_cmvn=True, with_delta=True)
+    config['mfcc']['dither'] = 0
+    config['pitch']['postprocessing']['delta_pitch_noise_stddev'] = 0
+
+    cuda_viterbi.reset_launches()
+    on_cuda = pipeline.extract_features(
+        copy.deepcopy(config), Utterances(entries), device=cuda_device)
+    assert min(cuda_viterbi.LAUNCHES.values()) > 0
+    on_cpu = pipeline.extract_features(
+        copy.deepcopy(config), Utterances(entries), device='cpu')
+    for name in on_cpu:
+        assert on_cuda[name].shape == on_cpu[name].shape
+        assert np.abs(on_cuda[name].data - on_cpu[name].data).max() < 1e-3

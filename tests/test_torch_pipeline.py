@@ -1,0 +1,260 @@
+"""The port's processors and pipeline against the JAX package.
+
+Same configurations and inputs through ``shennong_tpu`` and
+``shennong_tpu_torch`` on the CPU. With every random source at 0 (the
+MFCC dither, the pitch-post noise and the energy VAD's dither) the
+whole slice agrees at max-abs 1e-3, the contract of
+tests/test_real_audio.py.
+"""
+
+import copy
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import scipy.io.wavfile
+import torch
+
+from shennong_tpu import pipeline as jpipeline
+from shennong_tpu.processor import energy as jenergy
+from shennong_tpu.utils import dict_equal
+from shennong_tpu.utterances import Utterances
+from shennong_tpu_torch import pipeline
+from shennong_tpu_torch.parallel import executor as executor_module
+from shennong_tpu_torch.pipeline_manager import PipelineManager
+from shennong_tpu_torch.processor import energy
+from shennong_tpu_torch.processor.energy import EnergyProcessor
+from shennong_tpu_torch.processor.mfcc import MfccProcessor
+from shennong_tpu_torch.processor.pitch_kaldi import (
+    KaldiPitchPostProcessor, KaldiPitchProcessor)
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REAL_WAV = os.path.join(REPO, 'tests', 'data', 'test.wav')
+
+
+def speech_like(nsamples, seed):
+    rng = np.random.RandomState(seed)
+    t = np.arange(nsamples) / 16000
+    f0 = 100 + 60 * rng.rand() + 25 * np.sin(2 * np.pi * 0.6 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / 16000
+    voiced = sum((0.6 ** k) * np.sin((k + 1) * phase) for k in range(6))
+    envelope = (0.5 * (1 + np.sin(2 * np.pi * 2.7 * t))) ** 2
+    envelope[:800] = 0
+    signal = voiced * envelope + rng.randn(nsamples) * 0.02
+    return (signal / np.abs(signal).max() * 20000).astype(np.int16)
+
+
+@pytest.fixture(scope='module')
+def corpus(tmp_path_factory):
+    """4 utterances of 2 speakers, the real test.wav among them."""
+    path = tmp_path_factory.mktemp('corpus')
+    entries = [('real', REAL_WAV, 'spk1')]
+    for index, nsamples in enumerate([30000, 41000, 25500]):
+        wav = str(path / f'u{index}.wav')
+        scipy.io.wavfile.write(wav, 16000, speech_like(nsamples, index))
+        entries.append((f'u{index}', wav, f'spk{1 + index % 2}'))
+    return entries
+
+
+@pytest.fixture
+def no_energy_dither(monkeypatch):
+    """The energy VAD's default dither of 1.0 set to 0 in both
+    packages (the pipeline config has no knob for it)."""
+    for cls in (jenergy.EnergyProcessor, energy.EnergyProcessor):
+        defaults = list(cls.__init__.__defaults__)
+        defaults[3] = 0.0  # sample_rate, frame_shift, frame_length, dither
+        monkeypatch.setattr(cls.__init__, '__defaults__', tuple(defaults))
+    assert energy.EnergyProcessor().dither == 0
+
+
+def deterministic_config():
+    config = pipeline.get_default_config(
+        'mfcc', with_pitch='kaldi', with_cmvn=True, with_delta=True)
+    config['mfcc']['dither'] = 0
+    config['pitch']['postprocessing']['delta_pitch_noise_stddev'] = 0
+    return config
+
+
+# ---------------------------------------------------------------- config
+
+@pytest.mark.parametrize('pitch,cmvn,delta', [
+    ('kaldi', True, True), (False, False, False), ('kaldi', False, True),
+    (False, True, False)])
+def test_default_config_parity(pitch, cmvn, delta):
+    kwargs = dict(with_pitch=pitch, with_cmvn=cmvn, with_delta=delta)
+    assert dict_equal(
+        pipeline.get_default_config('mfcc', **kwargs),
+        jpipeline.get_default_config('mfcc', **kwargs))
+    assert (pipeline.get_default_config('mfcc', to_yaml=True, **kwargs)
+            == jpipeline.get_default_config('mfcc', to_yaml=True, **kwargs))
+
+
+def test_config_roundtrip_yaml():
+    text = pipeline.get_default_config(
+        'mfcc', to_yaml=True, with_pitch='kaldi', with_cmvn=True,
+        with_delta=True)
+    assert dict_equal(
+        pipeline.init_config(text),
+        pipeline.get_default_config(
+            'mfcc', with_pitch='kaldi', with_cmvn=True, with_delta=True))
+
+
+@pytest.mark.parametrize('features,pitch', [
+    ('plp', False), ('filterbank', False), ('mfcc', 'crepe')])
+def test_not_ported_raises(features, pitch):
+    with pytest.raises(NotImplementedError):
+        pipeline.get_default_config(features, with_pitch=pitch)
+
+
+def test_manager_resolves_port_classes():
+    for name in ('mfcc', 'energy', 'kaldi_pitch', 'kaldi_pitch_post',
+                 'cmvn', 'delta', 'vad'):
+        cls = PipelineManager.get_processor_class(name)
+        assert cls.__module__.startswith('shennong_tpu_torch.'), name
+    with pytest.raises(ValueError):
+        PipelineManager.get_processor_class('nope')
+
+
+# ------------------------------------------------------------ processors
+
+def test_processors_golden():
+    """The golden regression lock of tests/test_real_audio.py, on the
+    port (CPU)."""
+    from shennong_tpu.audio import Audio
+    audio = Audio.load(REAL_WAV)
+    golden = np.load(os.path.join(REPO, 'tests', 'data', 'golden_real.npz'))
+    pitch = KaldiPitchProcessor().process(audio, device='cpu')
+    outputs = {
+        'mfcc': MfccProcessor(dither=0).process(audio, device='cpu'),
+        'energy': EnergyProcessor(dither=0).process(audio, device='cpu'),
+        'pitch': pitch,
+        'pitch_post': KaldiPitchPostProcessor(
+            delta_pitch_noise_stddev=0).process(pitch, device='cpu'),
+    }
+    for name, features in outputs.items():
+        assert features.shape == golden[name].shape, name
+        assert np.abs(features.data - golden[name]).max() < 1e-3, name
+
+
+def test_processor_dither_is_seeded():
+    from shennong_tpu.audio import Audio
+    audio = Audio.load(REAL_WAV)
+    proc = MfccProcessor()
+    first, again, other = (
+        proc.process(audio, device='cpu',
+                     generator=torch.Generator().manual_seed(seed)).data
+        for seed in (3, 3, 4))
+    assert np.array_equal(first, again)
+    assert not np.array_equal(first, other)
+
+
+# ----------------------------------------------------------------- slice
+
+def test_slice_matches_reference(corpus, no_energy_dither):
+    config = deterministic_config()
+    utterances = Utterances(corpus)
+    ref = jpipeline.extract_features(copy.deepcopy(config), utterances)
+    ours = pipeline.extract_features(
+        copy.deepcopy(config), utterances, device='cpu')
+    assert list(ours.keys()) == list(ref.keys())
+    for name in ref:
+        assert ours[name].shape == ref[name].shape, name
+        assert ours[name].shape[1] == 42
+        assert np.abs(ours[name].data - ref[name].data).max() < 1e-3, name
+        assert np.array_equal(ours[name].times, ref[name].times)
+        props, ref_props = (copy.deepcopy(f.properties)
+                            for f in (ours[name], ref[name]))
+        assert np.allclose(props['cmvn'].pop('stats'),
+                           ref_props['cmvn'].pop('stats'), rtol=1e-5)
+        assert dict_equal(props, ref_props), name
+
+
+def test_slice_seeded_generator(corpus):
+    config = pipeline.get_default_config(
+        'mfcc', with_pitch='kaldi', with_cmvn=True, with_delta=True)
+    utterances = Utterances(corpus[:2])
+    first, again, other = (
+        pipeline.extract_features(
+            copy.deepcopy(config), utterances, device='cpu',
+            generator=torch.Generator().manual_seed(seed))
+        for seed in (11, 11, 12))
+    for name in first:
+        assert np.array_equal(first[name].data, again[name].data)
+        assert not np.array_equal(first[name].data, other[name].data)
+
+
+def test_executor_collects(corpus, no_energy_dither):
+    config = deterministic_config()
+    manager = PipelineManager(config, Utterances(corpus))
+    first = Utterances(corpus)[corpus[0][0]]
+    executor = executor_module.FusedPipelineExecutor(
+        manager.make('features', first),
+        energy_proc=manager.make('energy', first),
+        vad_proc=manager.make('vad'),
+        pitch_proc=manager.make('pitch', first),
+        pitch_post=manager.make('pitch_post'),
+        device='cpu', batch_size=3)
+    features, vads, pitches = executor.run(Utterances(corpus))
+    assert sorted(features) == sorted(name for name, _, _ in corpus)
+    for name in features:
+        assert features[name].shape[1] == 13
+        assert vads[name].dtype == np.uint8
+        assert vads[name].shape == (features[name].nframes,)
+        assert pitches[name].shape[1] == 3
+        assert abs(pitches[name].nframes - features[name].nframes) <= 2
+
+
+def test_pass_two_failure_stops_pass_one(corpus, monkeypatch):
+    """A failure in the per-utterance hook stops the stream at once,
+    instead of surfacing after every batch has run."""
+    calls = []
+    real = executor_module.pass_one_program
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(executor_module, 'pass_one_program', counting)
+    proc = MfccProcessor(dither=0)
+    executor = executor_module.FusedPipelineExecutor(
+        proc, device='cpu', batch_size=1, depth=1)
+
+    def fail(*_):
+        raise RuntimeError('pass 2 failed')
+
+    with pytest.raises(RuntimeError, match='pass 2 failed'):
+        executor.run(Utterances(corpus), on_utterance=fail)
+    assert len(calls) == 2  # batch 1 drained and failed after batch 2
+
+    monkeypatch.setattr(
+        pipeline, '_pass_two',
+        lambda *_: (_ for _ in ()).throw(RuntimeError('pass 2 failed')))
+    with pytest.raises(RuntimeError, match='pass 2 failed'):
+        pipeline.extract_features(
+            deterministic_config(), Utterances(corpus), device='cpu')
+
+
+def test_port_imports_no_jax(tmp_path):
+    """The port runs without ever importing jax."""
+    wav = str(tmp_path / 'a.wav')
+    scipy.io.wavfile.write(wav, 16000, speech_like(20000, 0))
+    script = f'''
+import sys
+from shennong_tpu_torch import Utterances, pipeline
+config = pipeline.get_default_config(
+    'mfcc', with_pitch='kaldi', with_cmvn=True, with_delta=True)
+out = pipeline.extract_features(
+    config, Utterances([('a', {wav!r}, 's')]), device='cpu')
+assert out['a'].shape == (123, 42), out['a'].shape
+assert 'jax' not in sys.modules, 'jax was imported'
+print('ok')
+'''
+    proc = subprocess.run(
+        [sys.executable, '-c', script], cwd=REPO, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == 'ok'
