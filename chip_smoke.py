@@ -4,24 +4,36 @@
 
 Builds the CUDA kernels of ``shennong_tpu_torch`` from the sources in
 this checkout, holds each against its plain PyTorch version on the
-card, checks the processors against ``tests/data/golden_real.npz``,
-and drives the port's main path -- ``extract_features`` with the
-default MFCC + Kaldi pitch + CMVN + delta configuration -- over a
-generated corpus of 256 utterances (4 s and 6 s, 16 speakers),
-showing that the path went through both Viterbi kernels. Every phase
-prints one line; any failure raises and the script exits non-zero.
-The second-to-last lines are the kernels' JSON record and the card's
-name and power limit; the last line is the JSON verdict.
+card, checks the processors against ``tests/data/golden_real.npz``
+and ``tests/kaldi_oracle.py``, and drives the port's paths over a
+generated corpus of 256 utterances (4 s and 6 s, 16 speakers):
+
+- the MFCC slice, ``extract_features`` with the default MFCC + Kaldi
+  pitch + CMVN + delta configuration;
+- the RASTA-PLP slice, the same with RASTA-PLP features (BASELINE
+  config 2), with the cost of its RASTA and Durbin stages read from
+  their profiler spans;
+- the filterbank (CMVN + deltas) and spectrogram (CMVN) passes;
+- the ``speech-features-torch`` CLI, ``config`` then ``extract
+  --device cuda`` on 16 utterances, against the in-process result.
+
+Both slices must go through both Viterbi kernels. Every phase prints
+its lines; any failure raises and the script exits non-zero. The
+second-to-last lines are the kernels' JSON record and the card's name
+and power limit; the last line is the JSON verdict.
 
 Exits non-zero without a result when no CUDA device is available.
 Imports nothing of JAX.
 """
 
+import copy
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -196,6 +208,42 @@ def goldens():
         check(err < GOLDEN_TOL, f'{name}: max-abs {err} >= {GOLDEN_TOL}')
         say('goldens', f'{name} {features.shape}: max-abs {err:.3g} '
             f'< {GOLDEN_TOL}')
+    frontends_golden(audio, golden)
+
+
+def frontends_golden(audio, golden):
+    """The spectrogram, filterbank and PLP processors on the card,
+    against golden_real.npz and the float64 Kaldi oracle."""
+    from shennong_tpu_torch.processor.filterbank import FilterbankProcessor
+    from shennong_tpu_torch.processor.plp import PlpProcessor
+    from shennong_tpu_torch.processor.spectrogram import (
+        SpectrogramProcessor)
+
+    from tests import kaldi_oracle
+
+    signal = audio.data.astype(np.float64)
+    cases = {
+        'fbank': (FilterbankProcessor(dither=0), kaldi_oracle.fbank),
+        'spectrogram': (
+            SpectrogramProcessor(dither=0), kaldi_oracle.spectrogram),
+        'plp': (PlpProcessor(dither=0), kaldi_oracle.plp),
+        'rastaplp': (PlpProcessor(dither=0, rasta=True),
+                     lambda x: kaldi_oracle.plp(x, rasta=True)),
+    }
+    for name, (proc, oracle) in cases.items():
+        features = proc.process(audio, device='cuda').data
+        check(features.shape == golden[name].shape,
+              f'{name}: shape {features.shape} != {golden[name].shape}')
+        err = float(np.abs(features - golden[name]).max())
+        diff = np.abs(features - oracle(signal))
+        frame, column = np.unravel_index(diff.argmax(), diff.shape)
+        check(err < GOLDEN_TOL, f'{name}: golden max-abs {err}')
+        check(diff.max() < GOLDEN_TOL, f'{name}: oracle max-abs '
+              f'{diff.max()} at frame {frame}, column {column}')
+        say('goldens', f'{name} {features.shape}: max-abs {err:.3g} '
+            f'against the golden, {diff.max():.3g} against the Kaldi '
+            f'oracle (worst at frame {frame}, column {column}), both < '
+            f'{GOLDEN_TOL}')
 
 
 # ------------------------------------------------------------------ slice
@@ -246,15 +294,45 @@ def expected_frames(nsamples):
     return min(mfcc, pitch)
 
 
-def zero_randomness(config):
-    config['mfcc']['dither'] = 0
-    config['pitch']['postprocessing']['delta_pitch_noise_stddev'] = 0
+def slice_config(features):
+    """The configuration of a slice: MFCC or RASTA-PLP features with
+    Kaldi pitch, CMVN and deltas."""
+    from shennong_tpu_torch import pipeline
+
+    config = pipeline.get_default_config(
+        features, with_pitch='kaldi', with_cmvn=True, with_delta=True)
+    if features == 'plp':
+        config['plp']['rasta'] = True
     return config
 
 
-def the_slice(card, workdir):
-    import copy
+def zero_randomness(config, features):
+    config[features]['dither'] = 0
+    if 'pitch' in config:
+        config['pitch']['postprocessing']['delta_pitch_noise_stddev'] = 0
+    return config
 
+
+def warm_runs(config, utterances):
+    """``RUNS`` timed runs of ``extract_features`` on the card: their
+    walls in seconds, and the last run's features."""
+    from shennong_tpu_torch import pipeline
+
+    walls = []
+    for _ in range(RUNS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = pipeline.extract_features(
+            copy.deepcopy(config), utterances, device='cuda')
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+    return walls, out
+
+
+def the_slice(card, entries, features):
+    """One slice over the corpus: a cold run, 5 timed warm runs whose
+    kernel launches are counted, a profiled run, and CUDA against the
+    CPU on 8 utterances with every random source at 0."""
     from shennong_tpu_torch import Utterances
     from shennong_tpu_torch import pipeline
     from shennong_tpu_torch.ops import cuda_viterbi
@@ -263,9 +341,8 @@ def the_slice(card, workdir):
 
     from tests.pitch_oracle import assert_lag_decisions
 
-    config = pipeline.get_default_config(
-        'mfcc', with_pitch='kaldi', with_cmvn=True, with_delta=True)
-    entries = make_corpus(workdir)
+    phase = f'{features} slice'
+    config = slice_config(features)
     utterances = Utterances(entries)
     audio_seconds = sum(utt.duration for utt in utterances)
 
@@ -274,33 +351,27 @@ def the_slice(card, workdir):
     pipeline.extract_features(copy.deepcopy(config), warm, device='cuda')
 
     cuda_viterbi.reset_launches()
-    walls = []
-    for _ in range(RUNS):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        features = pipeline.extract_features(
-            copy.deepcopy(config), utterances, device='cuda')
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - start)
+    walls, features_out = warm_runs(config, utterances)
     launches = dict(cuda_viterbi.LAUNCHES)
     for name, count in launches.items():
-        check(count > 0, f'the main path never launched {name}')
+        check(count > 0, f'the {phase} never launched {name}')
 
-    check(len(features) == NUM_UTTERANCES,
-          f'{len(features)} outputs for {NUM_UTTERANCES} utterances')
+    check(len(features_out) == NUM_UTTERANCES,
+          f'{len(features_out)} outputs for {NUM_UTTERANCES} utterances')
     for utt in utterances:
-        feats = features[utt.name]
+        feats = features_out[utt.name]
         nsamples = int(round(utt.duration * RATE))
         check(feats.shape == (expected_frames(nsamples), 42),
               f'{utt.name}: shape {feats.shape}')
         check(np.isfinite(feats.data).all(), f'{utt.name}: non-finite')
     seconds = float(np.median(walls))
     xrt = audio_seconds / seconds
-    say('slice', f'{NUM_UTTERANCES} utterances ({audio_seconds:.0f} s of '
+    say(phase, f'{NUM_UTTERANCES} utterances ({audio_seconds:.0f} s of '
         f'audio), {RUNS} warm runs: wall median {seconds:.4f} s (min '
         f'{min(walls):.4f}, max {max(walls):.4f}), warm xRT median '
-        f'{xrt:.1f} on {card}; launches {launches}')
-    profile_layers(config, utterances, seconds)
+        f'{xrt:.1f} (min {audio_seconds / max(walls):.1f}, max '
+        f'{audio_seconds / min(walls):.1f}) on {card}; launches {launches}')
+    profile_layers(phase, config, utterances, seconds)
 
     # 8 utterances with every random source at 0: cuda against cpu
     subset = Utterances(entries[:8])
@@ -309,7 +380,8 @@ def the_slice(card, workdir):
         defaults[:3] + (0.0,) + defaults[4:])
     try:
         on = {device: pipeline.extract_features(
-            zero_randomness(copy.deepcopy(config)), subset, device=device)
+            zero_randomness(copy.deepcopy(config), features), subset,
+            device=device)
             for device in ('cuda', 'cpu')}
     finally:
         energy_module.EnergyProcessor.__init__.__defaults__ = defaults
@@ -327,20 +399,116 @@ def the_slice(card, workdir):
             assert_lag_decisions(
                 audio.data.astype(np.float64), raw['cuda'], raw['cpu'])
             ties += 1
-            columns = 40  # mfcc + deltas + pov; pitch columns moved
+            columns = 40  # features + deltas + pov; pitch columns moved
         err = float(np.abs(gpu[:, :columns] - cpu[:, :columns]).max())
         check(err < SLICE_TOL, f'{utt.name}: cuda vs cpu max-abs {err}')
         worst = max(worst, err)
-    say('slice', f'cuda vs cpu on 8 utterances, no randomness: max-abs '
+    say(phase, f'cuda vs cpu on 8 utterances, no randomness: max-abs '
         f'{worst:.3g} < {SLICE_TOL} ({ties} with proven lag ties)')
     return launches, xrt
 
 
-def profile_layers(config, utterances, wall_s):
-    """One more run of the slice under torch.profiler: device busy
-    time by kernel, and the host spans of pass 1 and pass 2."""
-    import copy
+def frontends_pass(card, entries):
+    """The filterbank (CMVN + deltas, 69 columns) and spectrogram
+    (CMVN, 257 columns) passes over the corpus: a cold run whose shapes
+    and finiteness are checked, 5 timed warm runs and a profiled
+    run."""
+    from shennong_tpu_torch import Utterances
+    from shennong_tpu_torch import pipeline
+    from shennong_tpu_torch.ops import cuda_viterbi
 
+    utterances = Utterances(entries)
+    audio_seconds = sum(utt.duration for utt in utterances)
+    for features, delta, columns in (
+            ('filterbank', True, 69), ('spectrogram', False, 257)):
+        phase = f'{features} pass'
+        config = pipeline.get_default_config(
+            features, with_cmvn=True, with_delta=delta)
+        cuda_viterbi.reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = pipeline.extract_features(
+            copy.deepcopy(config), utterances, device='cuda')
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - start
+        check(len(out) == NUM_UTTERANCES, f'{features}: {len(out)} outputs')
+        for utt in utterances:
+            nsamples = int(round(utt.duration * RATE))
+            shape = (1 + (nsamples - 400) // 160, columns)
+            check(out[utt.name].shape == shape,
+                  f'{features} {utt.name}: shape {out[utt.name].shape}')
+            check(np.isfinite(out[utt.name].data).all(),
+                  f'{features} {utt.name}: non-finite')
+        walls, _ = warm_runs(config, utterances)
+        seconds = float(np.median(walls))
+        say(phase, f'{NUM_UTTERANCES} utterances, {columns} columns, '
+            f'finite; cold run {cold:.4f} s; {RUNS} warm runs: wall median '
+            f'{seconds:.4f} s (min {min(walls):.4f}, max {max(walls):.4f}), '
+            f'warm xRT median {audio_seconds / seconds:.1f} on {card}; '
+            f'launches {dict(cuda_viterbi.LAUNCHES)}')
+        profile_layers(phase, config, utterances, seconds)
+
+
+def cli_phase(workdir, entries):
+    """``speech-features-torch config`` then ``extract --device cuda``
+    on 16 utterances, in a child process, against the same
+    configuration run in this process (random sources at 0, CMVN
+    without the VAD: no randomness left)."""
+    import yaml
+
+    from shennong_tpu_torch import FeaturesCollection, Utterances
+    from shennong_tpu_torch import pipeline
+
+    index = os.path.join(workdir, 'utterances.txt')
+    with open(index, 'w') as stream:
+        for name, path, speaker in entries[:16]:
+            stream.write(f'{name} {path} {speaker}\n')
+    config_file = os.path.join(workdir, 'config.yaml')
+    output = os.path.join(workdir, 'features.npz')
+
+    def cli(*args):
+        start = time.perf_counter()
+        subprocess.run(
+            [sys.executable, '-m', 'shennong_tpu_torch.cli', *args],
+            cwd=HERE, check=True)
+        return time.perf_counter() - start
+
+    cli('config', 'plp', '--pitch', 'kaldi', '--cmvn', '--delta', '-o',
+        config_file)
+    with open(config_file) as stream:
+        config = yaml.safe_load(stream)
+    zero_randomness(config, 'plp')
+    config['plp']['rasta'] = True
+    config['cmvn']['with_vad'] = False
+    with open(config_file, 'w') as stream:
+        yaml.safe_dump(config, stream)
+    seconds = cli('extract', '-q', '--device', 'cuda', config_file, index,
+                  output)
+
+    saved = FeaturesCollection.load(output)
+    ref = pipeline.extract_features(
+        config_file, Utterances(entries[:16]), device='cuda')
+    check(sorted(saved) == sorted(ref), 'the CLI output misses utterances')
+    worst = 0.0
+    for name in ref:
+        check(saved[name].shape == ref[name].shape,
+              f'{name}: CLI shape {saved[name].shape}')
+        worst = max(worst, float(
+            np.abs(saved[name].data - ref[name].data).max()))
+    check(worst < 1e-5, f'CLI against in-process: max-abs {worst}')
+    say('cli', f'config plp -> extract --device cuda on 16 utterances in '
+        f'{seconds:.1f} s (a new process: start-up and kernel load '
+        f'included); .npz against in-process: max-abs {worst:.3g} < 1e-5')
+
+
+#: the port's profiler spans (torch.profiler.record_function)
+SPANS = ('pass1.dispatch', 'pass1.wait', 'pass2', 'plp.rasta', 'plp.durbin')
+
+
+def profile_layers(phase, config, utterances, wall_s):
+    """One more run under torch.profiler: device busy time by kernel,
+    and for each span of the port its host time and the device time of
+    the kernels launched inside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -352,28 +520,34 @@ def profile_layers(config, utterances, wall_s):
             copy.deepcopy(config), utterances, device='cuda')
         torch.cuda.synchronize()
     averages = prof.key_averages()
-    names = ('pass1.dispatch', 'pass1.wait', 'pass2')
-    # the annotations appear twice: as host spans, and as device-side
-    # user annotations that are not kernels
-    spans = {e.key: e.cpu_time_total / 1e3 for e in averages
-             if e.key in names and e.device_type == DeviceType.CPU}
+    # the annotations appear twice: as host spans, whose device time
+    # sums the kernels launched inside them, and as device-side user
+    # annotations that are not kernels
+    spans = sorted(
+        (e.key, e.count, e.cpu_time_total / 1e3, e.device_time_total / 1e3)
+        for e in averages
+        if e.key in SPANS and e.device_type == DeviceType.CPU)
     kernels = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key)
          for e in averages if e.device_type == DeviceType.CUDA
-         and e.key not in names),
+         and e.key not in SPANS),
         reverse=True)
     busy = sum(ms for ms, _, _ in kernels)
-    host = ', '.join(f'{key} {ms:.1f} ms' for key, ms in sorted(
-        spans.items()))
+    phase = f'{phase} profile'
     if not busy:
-        say('profile', f'device time not measured (the profiler saw no '
-            f'kernels); host spans: {host}')
-        return
-    say('profile', f'device busy {busy:.1f} ms of {wall_s * 1e3:.1f} ms '
-        f'unprofiled wall: idle share {1 - busy / (wall_s * 1e3):.3f}; '
-        f'host spans: {host}')
-    for ms, count, key in kernels[:8]:
-        say('profile', f'{ms:9.3f} ms  x{count:<5d} {key[:90]}')
+        say(phase, 'device time not measured (the profiler saw no '
+            'kernels)')
+    else:
+        say(phase, f'device busy {busy:.3f} ms of {wall_s * 1e3:.1f} ms '
+            f'unprofiled wall: idle share {1 - busy / (wall_s * 1e3):.3f}')
+    for key, count, host_ms, device_ms in spans:
+        device = f', device {device_ms:.3f} ms' if busy else ''
+        say(phase, f'span {key} x{count}: host {host_ms:.3f} ms{device}')
+    # the eight largest, then every cuFFT kernel
+    shown = kernels[:8] + [k for k in kernels[8:] if re.search(
+        'fft|radix', k[2], re.IGNORECASE)]
+    for ms, count, key in shown:
+        say(phase, f'{ms:9.3f} ms  x{count:<5d} {key[:90]}')
 
 
 def main():
@@ -382,8 +556,15 @@ def main():
     errors, times = kernels_vs_plain()
     goldens()
     workdir = os.path.join(HERE, 'build', 'chip_smoke_corpus')
+    launches = {'viterbi_forward': 0, 'viterbi_backtrace': 0}
     try:
-        launches, _ = the_slice(card, workdir)
+        entries = make_corpus(workdir)
+        for features in ('mfcc', 'plp'):
+            counts, _ = the_slice(card, entries, features)
+            for name, count in counts.items():
+                launches[name] += count
+        frontends_pass(card, entries)
+        cli_phase(workdir, entries)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

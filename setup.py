@@ -29,7 +29,9 @@ setup(
     install_requires=[
         'jax', 'numpy', 'scipy', 'pyyaml', 'h5py'],
     entry_points={'console_scripts': [
-        'speech-features = shennong_tpu.cli:main']},
+        'speech-features = shennong_tpu.cli:main',
+        # the PyTorch port's CLI
+        'speech-features-torch = shennong_tpu_torch.cli:main']},
     package_data={
         'shennong_tpu': ['share/crepe/*.npz', 'native/*.cpp'],
         # the PyTorch port builds its CUDA kernels from these

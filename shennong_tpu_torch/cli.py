@@ -1,0 +1,201 @@
+"""The ``speech-features-torch`` command line interface.
+
+Counterpart of the ``config`` and ``extract`` commands of
+:mod:`shennong_tpu.cli`, on the PyTorch port's pipeline: a ``config``
+subcommand generating commented YAML pipeline configurations and an
+``extract`` subcommand running a pipeline over an utterances index
+file on the device given by ``--device`` (default ``cuda``; nothing
+falls back to the CPU when CUDA is missing).
+
+The extraction pipeline is::
+
+     <input-config>     |--> features --> CMVN --> delta -->|
+         and         -->|                                   |--> <output-file>
+  <input-utterances>    |---------------> pitch ----------->|
+
+Utterances index lines follow one of the four formats::
+
+  <utterance-id> <audio-file>
+  <utterance-id> <audio-file> <speaker-id>
+  <utterance-id> <audio-file> <tstart> <tstop>
+  <utterance-id> <audio-file> <speaker-id> <tstart> <tstop>
+
+Output formats (guessed from the extension): .pkl .h5f .npz .mat .ark
+or a folder of CSV files.
+"""
+
+import argparse
+import os
+import sys
+
+import torch
+
+import shennong_tpu.logger as logger
+import shennong_tpu.utils as utils
+from shennong_tpu.serializers import supported_extensions
+from shennong_tpu.utterances import Utterances
+from shennong_tpu_torch import __version__, pipeline
+
+
+def _parser_config(subparsers, epilog):
+    parser = subparsers.add_parser(
+        'config',
+        description='Generate a configuration for features extraction, '
+        "have a 'speech-features-torch --help' for more details",
+        epilog=epilog,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+
+    parser.add_argument(
+        '-o', '--output', metavar='config-file', default=None,
+        help='The YAML configuration file to write. '
+        'If not specified, write to stdout')
+    parser.add_argument(
+        '--no-comments', action='store_true',
+        help='Do not include comments in the output YAML configuration '
+        'file. By default all parameters in the YAML are explained in '
+        'comments.')
+
+    group = parser.add_argument_group('pipeline arguments')
+    group.add_argument(
+        'features', type=str, choices=pipeline.valid_features(),
+        help='Configure the pipeline to extract those features')
+    group.add_argument(
+        '--cmvn', action='store_true',
+        help='Configure with CMVN normalization')
+    group.add_argument(
+        '--delta', action='store_true',
+        help='Configure with deltas extraction')
+    group.add_argument(
+        '--pitch', choices=['kaldi', 'crepe'],
+        help='Configure with Kaldi or CREPE pitch extraction, '
+        'no pitch by default')
+    group.add_argument(
+        '--vtln', choices=['simple', 'full'],
+        help='Configure with VTLN normalization, no VTLN by default. '
+        'VTLN is not compatible with spectrogram and bottleneck '
+        'features.')
+
+
+def _command_config(args):
+    config = pipeline.get_default_config(
+        args.features,
+        to_yaml=True, yaml_commented=not args.no_comments,
+        with_pitch=args.pitch or False,
+        with_cmvn=args.cmvn,
+        with_delta=args.delta,
+        with_vtln=args.vtln or False)
+
+    if not args.output:
+        sys.stdout.write(config)
+        return
+    with open(args.output, 'w') as output:
+        output.write(config)
+
+
+def _parser_extract(subparsers, epilog):
+    parser = subparsers.add_parser(
+        'extract',
+        description='Extract features from wav files given a '
+        "configuration, have a 'speech-features-torch --help' for more "
+        'details',
+        epilog=epilog,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+
+    parser.add_argument(
+        '--device', default='cuda', metavar='<device>',
+        help="the torch device the extraction runs on, 'cuda' (the "
+        "default), 'cuda:<index>' or 'cpu'; a CUDA device that is not "
+        'available is an error')
+
+    group = parser.add_argument_group('input/output arguments')
+    group.add_argument(
+        'config', metavar='<input-config>', type=str,
+        help='pipeline configuration file in YAML format, as generated '
+        "by the 'speech-features-torch config' command")
+    group.add_argument(
+        'utterances', metavar='<input-utterances>', type=str,
+        help='utterances index file defining utterances on which to '
+        'compute features')
+    group.add_argument(
+        'output_file', metavar='<output-file>',
+        help='file to save the computed features (must not exist)')
+
+    group = parser.add_argument_group('log messages arguments')
+    group = group.add_mutually_exclusive_group()
+    group.add_argument(
+        '-v', '--verbose', action='count', default=0,
+        help="increase the amount of logging on stderr (a single '-v' "
+        "adds info messages and '-vv' adds debug messages, use "
+        "'--quiet' to disable logging)")
+    group.add_argument(
+        '-q', '--quiet', action='store_true',
+        help='do not display any log message')
+
+
+def _command_extract(args):
+    if args.quiet:
+        log = utils.null_logger()
+    else:
+        level = ('warning', 'info', 'debug')[min(args.verbose, 2)]
+        log = logger.get_logger(name='speech-features-torch', level=level)
+
+    device = torch.device(args.device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            f'device {args.device} requested but no CUDA device is '
+            'available (pass --device cpu to run on the CPU)')
+
+    output_file = args.output_file
+    if os.path.exists(output_file):
+        raise ValueError(f'output file already exists: {output_file}')
+    output_ext = os.path.splitext(output_file)[1]
+    if output_ext not in supported_extensions():
+        raise ValueError(
+            f'output file has an unsupported extension "{output_ext}", '
+            f'must be in {", ".join(supported_extensions())}')
+    for filename in (args.config, args.utterances):
+        if not os.path.exists(filename):
+            raise ValueError(f'input file not found: {filename}')
+
+    utterances = Utterances.load(args.utterances)
+    features = pipeline.extract_features(
+        args.config, utterances, device=device, log=log)
+
+    log.info('saving the features to %s', output_file)
+    features.save(output_file)
+
+
+@utils.CatchExceptions
+def main():
+    """Entry point of the ``speech-features-torch`` program"""
+    epilog = 'speech-features-torch is part of the shennong-tpu library'
+
+    parser = argparse.ArgumentParser(
+        description=__doc__,
+        epilog=epilog,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument(
+        '-V', '--version', action='version',
+        version=f'shennong_tpu_torch {__version__}',
+        help='display version information and exit')
+
+    subparsers = parser.add_subparsers(
+        title='speech-features-torch commands',
+        description="use 'speech-features-torch <command> --help' for "
+        'details',
+        help="the 'config' command generates configuration templates, "
+        "the 'extract' command extracts features given a configuration",
+        dest='command', required=True)
+
+    _parser_config(subparsers, epilog)
+    _parser_extract(subparsers, epilog)
+
+    args = parser.parse_args()
+    if args.command == 'config':
+        _command_config(args)
+    else:
+        _command_extract(args)
+
+
+if __name__ == '__main__':
+    main()

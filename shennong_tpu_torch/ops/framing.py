@@ -69,6 +69,17 @@ def num_frames(nsamples, opts):
     return (nsamples + shift // 2) // shift
 
 
+def frame_counts(nsamples, opts):
+    """:func:`num_frames` on the device: per-utterance frame counts
+    [B] from the sample counts ``nsamples`` [B]."""
+    shift, length = opts.window_shift, opts.window_size
+    if opts.snip_edges:
+        return torch.clamp_min(
+            torch.div(nsamples - length, shift, rounding_mode='floor') + 1,
+            0)
+    return torch.div(nsamples + shift // 2, shift, rounding_mode='floor')
+
+
 @functools.lru_cache(maxsize=None)
 def window_function(window_type, window_size, blackman_coeff=0.42):
     """The window vector (float32 numpy), one of the five Kaldi types.

@@ -1,11 +1,12 @@
-"""Batched post-processing ops: deltas, CMVN, energy VAD.
+"""Batched post-processing ops: deltas, CMVN, sliding CMVN, energy VAD.
 
-Counterpart of :mod:`shennong_tpu.ops.postops` on the path of the
-default pipeline. Deltas are shifted-weighted sums with Kaldi's
-polynomial-fit coefficients (on a device in :func:`compute_deltas`, in
-numpy on the host in :func:`compute_deltas_host`), CMVN statistics and
-their application are float64 host math, and the energy VAD is a
-windowed vote on the device.
+Counterpart of :mod:`shennong_tpu.ops.postops`. Deltas are
+shifted-weighted sums with Kaldi's polynomial-fit coefficients (on a
+device in :func:`compute_deltas`, in numpy on the host in
+:func:`compute_deltas_host`), CMVN statistics and their application
+are float64 host math, sliding-window CMVN takes its window statistics
+from float64 prefix sums on the device, and the energy VAD is a windowed vote
+on the device.
 """
 
 import functools
@@ -166,6 +167,68 @@ def apply_cmvn(feats, stats, norm_vars=True, skip_dims=None,
     if reverse:
         return ((feats - offset) / scale).astype(feats.dtype)
     return (feats * scale + offset).astype(feats.dtype)
+
+
+# ------------------------------------------------------------- sliding CMVN
+
+def sliding_window_cmvn(feats, nframes, center=True, cmn_window=600,
+                        min_window=100, normalize_variance=False):
+    """Per-frame sliding-window mean (and variance) normalization.
+
+    ``feats`` is [B, T, D], ``nframes`` [B] the true frame counts.
+    Implements Kaldi's SlidingWindowCmn window placement: a window of
+    ``cmn_window`` frames centered on (or trailing) the current frame,
+    shifted to stay inside the utterance, with ``min_window`` lookahead
+    at the start in the non-centered case. Windowed sums come from
+    prefix sums, one pass for the whole batch.
+    """
+    bsz, maxframes, dim = feats.shape
+    device = feats.device
+    n = nframes.to(device=device, dtype=torch.int64)[:, None]  # [B, 1]
+    t = torch.arange(maxframes, dtype=torch.int64, device=device)[None, :]
+
+    if center:
+        start = t - cmn_window // 2
+        end = start + cmn_window
+    else:
+        start = t - cmn_window
+        end = t + 1
+
+    # shift the window inside [0, n)
+    end = torch.where(start < 0, end - start, end)
+    start = torch.clamp_min(start, 0)
+    if not center:
+        end = torch.where(end > t, torch.clamp_min(t + 1, min_window), end)
+    shift = torch.clamp_min(end - n, 0)
+    start = torch.clamp_min(start - shift, 0)
+    end = torch.minimum(end, n)
+
+    # windowed sums as prefix-sum differences, accumulated in float64
+    # as Kaldi does: in float32 the difference of two prefix sums loses
+    # up to 1e-3 on features with a mean of ~15 (a log energy), and
+    # differs between a sequential and a parallel scan
+    valid = (t < n)[:, :, None]
+    feats64 = torch.where(valid, feats, 0.0).to(torch.float64)
+    zeros = feats64.new_zeros((bsz, 1, dim))
+    csum = torch.cat([zeros, torch.cumsum(feats64, dim=1)], dim=1)
+
+    def window_sum(cs):
+        upper = torch.gather(cs, 1, end[:, :, None].expand(-1, -1, dim))
+        lower = torch.gather(cs, 1, start[:, :, None].expand(-1, -1, dim))
+        return upper - lower
+
+    counts = torch.clamp_min((end - start).to(torch.float64), 1.0)[:, :, None]
+    mean = window_sum(csum) / counts
+    out = feats.to(torch.float64) - mean
+
+    if normalize_variance:
+        csumsq = torch.cat(
+            [zeros, torch.cumsum(feats64 * feats64, dim=1)], dim=1)
+        variance = torch.clamp_min(
+            window_sum(csumsq) / counts - mean * mean, 1.0e-10)
+        out = torch.where(counts <= 1.0, 0.0, out * torch.rsqrt(variance))
+
+    return out.to(feats.dtype)
 
 
 # ---------------------------------------------------------------------- VAD

@@ -1,10 +1,10 @@
-"""Batched MFCC and frame-energy computers.
+"""Batched spectrogram, filterbank, MFCC and frame-energy computers.
 
-Counterpart of :mod:`shennong_tpu.ops.spectral` on the path of the
-default pipeline: frame gather -> window processing -> rFFT -> power
-spectrum -> mel and DCT matmuls -> liftering and the energy column.
-The power spectrum is ``torch.fft.rfft``, the reference's non-TPU
-branch; its TPU-only DFT-as-matmul branches are not ported.
+Counterpart of :mod:`shennong_tpu.ops.spectral`: frame gather ->
+window processing -> rFFT -> power spectrum -> mel and DCT matmuls ->
+liftering and the energy column. The power spectrum is
+``torch.fft.rfft``, the reference's non-TPU branch; its TPU-only
+DFT-as-matmul branches are not ported.
 """
 
 import dataclasses
@@ -21,12 +21,31 @@ _SQRT2 = math.sqrt(2.0)
 
 
 @dataclasses.dataclass(frozen=True)
+class SpectrogramOpts:
+    frame: FrameOptions = FrameOptions()
+    energy_floor: float = 0.0
+    raw_energy: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
 class MelOpts:
     num_bins: int = 23
     low_freq: float = 20.0
     high_freq: float = 0.0
     vtln_low: float = 100.0
     vtln_high: float = -500.0
+
+
+@dataclasses.dataclass(frozen=True)
+class FbankOpts:
+    frame: FrameOptions = FrameOptions()
+    mel: MelOpts = MelOpts()
+    use_energy: bool = False
+    energy_floor: float = 0.0
+    raw_energy: bool = True
+    htk_compat: bool = False
+    use_log_fbank: bool = True
+    use_power: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +73,11 @@ def power_spectrum(frames, padded_size):
     return spectrum.real ** 2 + spectrum.imag ** 2
 
 
-def _power_and_energy(signals, nsamples, opts, nframes_max, generator):
-    """Power spectrum and frame log energy (raw, pre-window, or
-    windowed according to ``opts.raw_energy``)."""
+def _power_and_energy(signals, nsamples, opts, nframes_max, generator,
+                      fft_dtype=torch.float32):
+    """Power spectrum (float32, its FFT in ``fft_dtype``) and frame log
+    energy (raw, pre-window, or windowed according to
+    ``opts.raw_energy``)."""
     frames = framing.extract_frames(
         signals, nsamples, opts.frame, nframes_max)
     processed, raw_log_energy = framing.process_frames(
@@ -65,8 +86,9 @@ def _power_and_energy(signals, nsamples, opts, nframes_max, generator):
         log_energy = raw_log_energy
     else:
         log_energy = framing.windowed_log_energy(processed)
-    return (power_spectrum(processed, opts.frame.padded_window_size),
-            log_energy)
+    power = power_spectrum(
+        processed.to(fft_dtype), opts.frame.padded_window_size)
+    return power.to(torch.float32), log_energy
 
 
 def _floor_energy(log_energy, energy_floor):
@@ -75,12 +97,68 @@ def _floor_energy(log_energy, energy_floor):
     return log_energy
 
 
+def mel_apply(power, mel_weights):
+    """Power spectrum [B, F, P] -> mel energies [B, F, M].
+
+    ``mel_weights`` is a shared [M, P] matrix or per-utterance
+    [B, M, P] matrices (per-utterance VTLN warps in one batch), a
+    numpy array or a tensor; it moves to the power's device.
+    """
+    mel = torch.as_tensor(
+        mel_weights, dtype=torch.float32, device=power.device)
+    subscripts = 'bfp,bmp->bfm' if mel.ndim == 3 else 'bfp,mp->bfm'
+    return torch.einsum(subscripts, power, mel)
+
+
+def spectrogram_batch(signals, nsamples, opts, nframes_max, generator=None):
+    """Log power spectrum, column 0 replaced by the frame log energy.
+
+    Output shape [B, nframes_max, padded_window_size // 2 + 1].
+
+    The FFT runs in float64: every bin's log is an output, and the log
+    of a bin near the floor amplifies a float32 FFT's rounding (cuFFT's
+    reached 1.0e-3 against Kaldi's float64 arithmetic on
+    tests/data/test.wav, at the Nyquist bin).
+    """
+    power, log_energy = _power_and_energy(
+        signals, nsamples, opts, nframes_max, generator,
+        fft_dtype=torch.float64)
+    feats = torch.log(torch.clamp_min(power, FLT_EPSILON))
+    feats[..., 0] = _floor_energy(log_energy, opts.energy_floor)
+    return feats
+
+
+def fbank_batch(signals, nsamples, mel_weights, opts, nframes_max,
+                generator=None):
+    """Mel filterbank features, optional energy column.
+
+    Output dim is num_bins (+1 with energy); the energy column sits
+    first, or last in HTK-compatible mode. ``mel_weights`` is as in
+    :func:`mel_apply`.
+    """
+    power, log_energy = _power_and_energy(
+        signals, nsamples, opts, nframes_max, generator)
+    if not opts.use_power:
+        power = torch.sqrt(power)
+
+    mel_energies = mel_apply(power, mel_weights)
+    if opts.use_log_fbank:
+        mel_energies = torch.log(torch.clamp_min(mel_energies, FLT_EPSILON))
+
+    if not opts.use_energy:
+        return mel_energies
+
+    log_energy = _floor_energy(log_energy, opts.energy_floor)[..., None]
+    if opts.htk_compat:
+        return torch.cat([mel_energies, log_energy], dim=-1)
+    return torch.cat([log_energy, mel_energies], dim=-1)
+
+
 def mfcc_batch(signals, nsamples, mel_weights, opts, nframes_max,
                generator=None):
     """MFCC features [B, nframes_max, num_ceps].
 
-    ``mel_weights`` is the [M, P] filterbank, a numpy array or a
-    tensor; it moves to the signals' device. Pipeline:
+    ``mel_weights`` is as in :func:`mel_apply`. Pipeline:
     frames -> rFFT -> power -> mel matmul -> log -> DCT-II matmul ->
     cepstral lifter -> energy/C0 handling -> HTK reorder.
     """
@@ -88,9 +166,8 @@ def mfcc_batch(signals, nsamples, mel_weights, opts, nframes_max,
     power, log_energy = _power_and_energy(
         signals, nsamples, opts, nframes_max, generator)
 
-    mel = torch.as_tensor(mel_weights, dtype=torch.float32, device=device)
     log_mel = torch.log(torch.clamp_min(
-        torch.einsum('bfp,mp->bfm', power, mel), FLT_EPSILON))
+        mel_apply(power, mel_weights), FLT_EPSILON))
 
     dct = torch.as_tensor(
         melmod.dct_matrix(opts.num_ceps, opts.mel.num_bins),

@@ -35,7 +35,8 @@ class FusedPipelineExecutor:
 
     Parameters
     ----------
-    feat_proc : MfccProcessor
+    feat_proc : MfccProcessor, FilterbankProcessor, PlpProcessor or
+        SpectrogramProcessor
         The features processor.
     energy_proc, vad_proc : optional
         An EnergyProcessor and a VadPostProcessor: enable the VAD
@@ -58,10 +59,6 @@ class FusedPipelineExecutor:
     def __init__(self, feat_proc, energy_proc=None, vad_proc=None,
                  pitch_proc=None, pitch_post=None, *, device,
                  batch_size=64, depth=2, generator=None):
-        if feat_proc.name != 'mfcc':
-            raise NotImplementedError(
-                f'fused pass 1 for {feat_proc.name} features is not '
-                'yet ported')
         self.feat_proc = feat_proc
         self.energy_proc = energy_proc
         self.vad_proc = vad_proc
@@ -127,8 +124,8 @@ class FusedPipelineExecutor:
         static = self._static_opts()
         generator = self._generator(static)
         frame_opts = static['feat_opts'].frame
-        mel_weights = torch.as_tensor(
-            self.feat_proc.mel_weights(1.0), device=self.device)
+        mel_weights, equal_loudness = _mel_inputs(
+            self.feat_proc, self.device)
         cuda = self.device.type == 'cuda'
 
         features = FeaturesCollection()
@@ -150,7 +147,7 @@ class FusedPipelineExecutor:
             dev_nsamples = torch.from_numpy(nsamples).to(
                 self.device, non_blocking=True)
             out = pass_one_program(
-                dev_signals, dev_nsamples, mel_weights,
+                dev_signals, dev_nsamples, mel_weights, equal_loudness,
                 device=self.device, generator=generator, **kwargs)
             if not cuda:
                 return names, nsamples, out, None, signals
@@ -221,6 +218,18 @@ class _RawProps:
     """Stand-in for the raw pitch Features (the fused path never
     builds them; only their ``properties`` are chained)."""
     properties: dict
+
+
+def _mel_inputs(proc, device):
+    """(mel_weights, equal_loudness) of the features processor on
+    ``device``: the mel bank of the mel-based processors, and the
+    equal-loudness weights of PLP, else None."""
+    if not hasattr(proc, 'mel_weights'):  # spectrogram
+        return None, None
+    mel = torch.as_tensor(proc.mel_weights(1.0), device=device)
+    if proc.name != 'plp':
+        return mel, None
+    return mel, torch.as_tensor(proc.equal_loudness(1.0), device=device)
 
 
 def _check_sample_rates(utterances, proc):

@@ -2,32 +2,22 @@
 
 Counterpart of :func:`shennong_tpu.parallel.fused.pass_one_program`:
 everything pass 1 needs from a padded signal batch, computed on one
-device without host round trips between stages -- the MFCC frames,
-the energy-VAD decisions that weight the CMVN statistics, and the
-post-processed Kaldi pitch. The reference's ``pack_payload`` (one
-fetch per batch through a relay) has no counterpart: the executor
-copies each output to pinned host memory.
+device without host round trips between stages -- the feature frames
+(MFCC, filterbank, PLP or spectrogram), the energy-VAD decisions that
+weight the CMVN statistics, and the post-processed Kaldi pitch. The
+reference's ``pack_payload`` (one fetch per batch through a relay) has
+no counterpart: the executor copies each output to pinned host memory.
 """
 
 import torch
 
 from shennong_tpu_torch.ops import pitch as pitch_ops
-from shennong_tpu_torch.ops import postops, spectral
+from shennong_tpu_torch.ops import plp, postops, spectral
+from shennong_tpu_torch.ops.framing import frame_counts
 
 
-def frame_counts(nsamples, frame_opts):
-    """Per-utterance frame counts [B] (both ``snip_edges`` settings)."""
-    shift = frame_opts.window_shift
-    length = frame_opts.window_size
-    if frame_opts.snip_edges:
-        return torch.clamp_min(
-            torch.div(nsamples - length, shift, rounding_mode='floor') + 1,
-            0)
-    return torch.div(nsamples + shift // 2, shift, rounding_mode='floor')
-
-
-def pass_one_program(signals, nsamples, mel_weights, kind, feat_opts,
-                     nframes_max, device, energy_opts=None,
+def pass_one_program(signals, nsamples, mel_weights, equal_loudness, kind,
+                     feat_opts, nframes_max, device, energy_opts=None,
                      compression='log', vad_opts=None, pitch_opts=None,
                      post_opts=None, pitch_frames_max=None,
                      with_noise=False, generator=None):
@@ -37,9 +27,13 @@ def pass_one_program(signals, nsamples, mel_weights, kind, feat_opts,
     ----------
     signals : [B, T] int16 or float32 tensor, int16-range samples
     nsamples : [B] int32 tensor, true per-utterance sample counts
-    mel_weights : [M, P] mel filterbank (numpy or tensor)
-    kind : str, the features; only 'mfcc' is ported
-    feat_opts : MfccOpts
+    mel_weights : [M, P] or [B, M, P] mel filterbank (numpy or tensor),
+        None for spectrograms
+    equal_loudness : [M] or [B, M] equal-loudness weights (numpy or
+        tensor) for PLP, else None
+    kind : str, the features: 'mfcc', 'filterbank', 'plp' or
+        'spectrogram'
+    feat_opts : MfccOpts, FbankOpts, PlpOpts or SpectrogramOpts
     nframes_max : int, feature frames per row
     device : torch.device the program runs on; the inputs move there
     energy_opts, compression, vad_opts : the energy-VAD stage (its
@@ -55,16 +49,28 @@ def pass_one_program(signals, nsamples, mel_weights, kind, feat_opts,
     Returns a dict with ``feats`` [B, F, D] and, when configured,
     ``vad`` [B, F] uint8 and ``pitch`` [B, Fp, P], all on ``device``.
     """
-    if kind != 'mfcc':
-        raise NotImplementedError(
-            f'fused pass 1 for {kind} features is not yet ported')
     device = torch.device(device)
     signals = signals.to(device=device, dtype=torch.float32)
     nsamples = nsamples.to(device=device, dtype=torch.int32)
 
-    out = {'feats': spectral.mfcc_batch(
-        signals, nsamples, mel_weights, feat_opts, nframes_max,
-        generator=generator)}
+    if kind == 'mfcc':
+        feats = spectral.mfcc_batch(
+            signals, nsamples, mel_weights, feat_opts, nframes_max,
+            generator=generator)
+    elif kind == 'filterbank':
+        feats = spectral.fbank_batch(
+            signals, nsamples, mel_weights, feat_opts, nframes_max,
+            generator=generator)
+    elif kind == 'plp':
+        feats = plp.plp_batch(
+            signals, nsamples, mel_weights, equal_loudness, feat_opts,
+            nframes_max, generator=generator)
+    elif kind == 'spectrogram':
+        feats = spectral.spectrogram_batch(
+            signals, nsamples, feat_opts, nframes_max, generator=generator)
+    else:
+        raise ValueError(f'unsupported fused pass-1 features: {kind}')
+    out = {'feats': feats}
 
     if energy_opts is not None:
         log_energy = spectral.energy_batch(

@@ -1,17 +1,17 @@
 """High-level features extraction pipeline (YAML config driven).
 
 Counterpart of :mod:`shennong_tpu.pipeline` for the configurations
-ported so far: MFCC features with optional Kaldi pitch, CMVN (with the
-energy VAD) and deltas -- the default pipeline of
-``get_default_config('mfcc', with_pitch='kaldi', with_cmvn=True,
-with_delta=True)``. Other configurations raise NotImplementedError.
+ported so far: spectrogram, filterbank, MFCC or PLP (with or without
+RASTA) features with optional Kaldi pitch, CMVN (with the energy VAD)
+and deltas. Bottleneck features, CREPE pitch and VTLN raise
+NotImplementedError.
 
 :func:`extract_features` runs in two passes. Pass 1 is one fused
 program per padded utterance batch on the given device
 (:class:`shennong_tpu_torch.parallel.executor.FusedPipelineExecutor`):
-MFCC, the energy VAD and the post-processed pitch. Pass 2 runs on the
-host as soon as a CMVN group (a speaker, or one utterance) has
-landed: CMVN statistics, their application, deltas and the pitch
+the features, the energy VAD and the post-processed pitch. Pass 2
+runs on the host as soon as a CMVN group (a speaker, or one utterance)
+has landed: CMVN statistics, their application, deltas and the pitch
 concatenation. A pass-2 failure stops pass 1 at once.
 """
 

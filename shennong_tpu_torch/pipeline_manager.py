@@ -11,7 +11,8 @@ from shennong_tpu.pipeline_manager import PipelineManager as _Reference
 from shennong_tpu_torch.ops.postops import accumulate_cmvn_stats
 
 #: the config sections whose processors are ported
-PORTED = ('mfcc', 'energy', 'kaldi_pitch', 'kaldi_pitch_post', 'cmvn',
+PORTED = ('spectrogram', 'filterbank', 'mfcc', 'plp', 'energy',
+          'kaldi_pitch', 'kaldi_pitch_post', 'cmvn', 'sliding_window_cmvn',
           'delta', 'vad')
 
 

@@ -1,6 +1,6 @@
 """Feature post-processors (Features -> Features)."""
 
 from shennong_tpu_torch.postprocessor.cmvn import (
-    CmvnPostProcessor, apply_cmvn)
+    CmvnPostProcessor, SlidingWindowCmvnPostProcessor, apply_cmvn)
 from shennong_tpu_torch.postprocessor.delta import DeltaPostProcessor
 from shennong_tpu_torch.postprocessor.vad import VadPostProcessor

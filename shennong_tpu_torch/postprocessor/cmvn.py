@@ -1,13 +1,16 @@
-"""Cepstral mean/variance normalization post-processor.
+"""Cepstral mean/variance normalization post-processors.
 
-Counterpart of :class:`shennong_tpu.postprocessor.cmvn.CmvnPostProcessor`
-and :func:`~shennong_tpu.postprocessor.cmvn.apply_cmvn`. Statistics
+Counterpart of :mod:`shennong_tpu.postprocessor.cmvn`. Statistics
 accumulation is an associative float64 reduction and the application
 a per-dimension affine transform, both on the host. The sliding-window
-variant is not yet ported.
+variant runs on a given device as a batched prefix-sum computation
+(:func:`shennong_tpu_torch.ops.postops.sliding_window_cmvn`).
 """
 
+import copy
+
 import numpy as np
+import torch
 
 from shennong_tpu.features import Features
 from shennong_tpu.features_collection import FeaturesCollection
@@ -178,3 +181,149 @@ def apply_cmvn(feats_collection, by_collection=True, norm_vars=True,
         out[key] = cmvn.process(
             feats, norm_vars=norm_vars, skip_dims=skip_dims)
     return out
+
+
+#: utterances per padded batch of SlidingWindowCmvnPostProcessor.process_all
+BATCH_ROWS = 16
+
+
+class SlidingWindowCmvnPostProcessor(FeaturesPostProcessor):
+    """Sliding-window mean (and variance) normalization.
+
+    Parameters
+    ----------
+    center : bool, optional
+        Whether to center the window on the current frame, default True
+    cmn_window : int, optional
+        Window size for average CMN computation, default 600
+    min_window : int, optional
+        Minimum CMN window used at start of decoding, default 100
+    max_warnings : int, optional
+        Kept for API compatibility (unused), default 5
+    normalize_variance : bool, optional
+        Whether to normalize variance to one, default False
+    """
+
+    def __init__(self, center=True, cmn_window=600, min_window=100,
+                 max_warnings=5, normalize_variance=False):
+        super().__init__()
+        self.center = center
+        self.cmn_window = cmn_window
+        self.min_window = min_window
+        self.max_warnings = max_warnings
+        self.normalize_variance = normalize_variance
+
+    @property
+    def name(self):
+        return 'sliding_window_cmvn'
+
+    @property
+    def ndims(self):
+        raise ValueError('output dimension for sliding '
+                         'window CMVN processor depends on input')
+
+    @property
+    def center(self):
+        """Whether to center the window on the current frame"""
+        return self._center
+
+    @center.setter
+    def center(self, value):
+        self._center = bool(value)
+
+    @property
+    def cmn_window(self):
+        """Window size for average CMN computation"""
+        return self._cmn_window
+
+    @cmn_window.setter
+    def cmn_window(self, value):
+        self._cmn_window = int(value)
+
+    @property
+    def min_window(self):
+        """Minimum CMN window used at start of decoding"""
+        return self._min_window
+
+    @min_window.setter
+    def min_window(self, value):
+        self._min_window = int(value)
+
+    @property
+    def max_warnings(self):
+        """Maximum warning to report per utterance"""
+        return self._max_warnings
+
+    @max_warnings.setter
+    def max_warnings(self, value):
+        self._max_warnings = int(value)
+
+    @property
+    def normalize_variance(self):
+        """Whether to normalize variance to one"""
+        return self._normalize_variance
+
+    @normalize_variance.setter
+    def normalize_variance(self, value):
+        self._normalize_variance = bool(value)
+
+    def get_properties(self, features):
+        properties = copy.deepcopy(features.properties)
+        properties[self.name] = self.get_params()
+        properties.setdefault('pipeline', []).append({
+            'name': self.name,
+            'columns': [0, features.ndims - 1]})
+        return properties
+
+    def _normalize(self, stacked, nframes, device):
+        """sliding_window_cmvn of a [B, T, D] numpy batch on ``device``"""
+        out = postops.sliding_window_cmvn(
+            torch.as_tensor(stacked, device=device),
+            torch.as_tensor(nframes, device=device),
+            center=self._center, cmn_window=self._cmn_window,
+            min_window=self._min_window,
+            normalize_variance=self._normalize_variance)
+        return out.cpu().numpy()
+
+    def process(self, features, *, device):
+        """Apply sliding-window normalization to ``features`` on
+        ``device``."""
+        out = self._normalize(
+            features.data.astype(np.float32)[None],
+            np.array([features.nframes], dtype=np.int32), device)
+        return Features(
+            out[0].astype(features.dtype), features.times,
+            self.get_properties(features))
+
+    def process_all(self, features_collection, *, device):
+        """Sliding-window normalization of a whole collection on
+        ``device``, :data:`BATCH_ROWS` utterances of one dimension per
+        padded batch. Returns a FeaturesCollection keyed like the
+        input."""
+        names = list(features_collection.keys())
+        by_dim = {}
+        for name in names:
+            by_dim.setdefault(
+                features_collection[name].ndims, []).append(name)
+        normed = {}
+        for dim, group in by_dim.items():
+            for start in range(0, len(group), BATCH_ROWS):
+                chunk = group[start:start + BATCH_ROWS]
+                nframes = np.array(
+                    [features_collection[name].nframes for name in chunk],
+                    dtype=np.int32)
+                stacked = np.zeros(
+                    (len(chunk), max(nframes.max(), 1), dim),
+                    dtype=np.float32)
+                for row, name in enumerate(chunk):
+                    stacked[row, :nframes[row]] = \
+                        features_collection[name].data
+                out = self._normalize(stacked, nframes, device)
+                for row, name in enumerate(chunk):
+                    normed[name] = out[row, :nframes[row]]
+        return FeaturesCollection({
+            name: Features(
+                normed[name].astype(features_collection[name].dtype),
+                features_collection[name].times,
+                self.get_properties(features_collection[name]))
+            for name in names})

@@ -1,12 +1,15 @@
 """Speech feature extraction processors (Audio -> Features).
 
-The processors ported so far: MFCC, frame energy and Kaldi pitch with
-its post-processor. Imports are lazy (PEP 562), as in
-:mod:`shennong_tpu.processor`.
+The processors ported so far: spectrogram, filterbank, MFCC, PLP
+(with RASTA), frame energy and Kaldi pitch with its post-processor.
+Imports are lazy (PEP 562), as in :mod:`shennong_tpu.processor`.
 """
 
 _REGISTRY = {
+    'SpectrogramProcessor': 'spectrogram',
+    'FilterbankProcessor': 'filterbank',
     'MfccProcessor': 'mfcc',
+    'PlpProcessor': 'plp',
     'EnergyProcessor': 'energy',
     'KaldiPitchProcessor': 'pitch_kaldi',
     'KaldiPitchPostProcessor': 'pitch_kaldi',

@@ -1,0 +1,140 @@
+"""The port's ``speech-features-torch`` command line, on the CPU.
+
+A ``config`` -> ``extract --device cpu`` round trip to ``.npz`` equals
+the port's own pipeline result exactly (every random source at 0), the
+generated configuration equals the JAX CLI's, and the command refuses
+a CUDA device that is not there instead of picking the CPU.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import scipy.io.wavfile
+import torch
+import yaml
+
+from shennong_tpu import pipeline as jpipeline
+from shennong_tpu.features_collection import FeaturesCollection
+from shennong_tpu.utterances import Utterances
+from shennong_tpu_torch import pipeline
+from shennong_tpu_torch.cli import main
+from shennong_tpu_torch.processor import energy
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REAL_WAV = os.path.join(REPO, 'tests', 'data', 'test.wav')
+
+
+def run_cli(monkeypatch, *argv):
+    monkeypatch.setattr(sys, 'argv', ['speech-features-torch'] + list(argv))
+    main()
+
+
+@pytest.fixture
+def corpus(tmp_path):
+    """An utterances index of 3 utterances, 2 speakers."""
+    rng = np.random.RandomState(0)
+    lines = [f'real {REAL_WAV} spk1']
+    for index, nsamples in enumerate([24000, 17000]):
+        wav = str(tmp_path / f'u{index}.wav')
+        t = np.arange(nsamples) / 16000
+        signal = (np.sin(2 * np.pi * (130 + 25 * index) * t)
+                  * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t))
+                  + 0.05 * rng.randn(nsamples))
+        scipy.io.wavfile.write(wav, 16000, (
+            signal / np.abs(signal).max() * 20000).astype(np.int16))
+        lines.append(f'u{index} {wav} spk{2 - index % 2}')
+    path = tmp_path / 'utterances.txt'
+    path.write_text('\n'.join(lines) + '\n')
+    return str(path)
+
+
+def test_config_equals_reference(monkeypatch, capsys):
+    """What ``speech-features config`` writes for the same arguments."""
+    run_cli(monkeypatch, 'config', 'plp', '--pitch', 'kaldi', '--cmvn',
+            '--delta')
+    ours = capsys.readouterr().out
+    assert ours == jpipeline.get_default_config(
+        'plp', to_yaml=True, with_pitch='kaldi', with_cmvn=True,
+        with_delta=True)
+    assert 'rasta' in ours
+
+
+def test_extract_roundtrip(monkeypatch, tmp_path, corpus):
+    """config -> edit -> extract --device cpu -> .npz, equal to the
+    pipeline run in-process on the same configuration."""
+    defaults = list(energy.EnergyProcessor.__init__.__defaults__)
+    defaults[3] = 0.0  # the energy VAD's dither
+    monkeypatch.setattr(
+        energy.EnergyProcessor.__init__, '__defaults__', tuple(defaults))
+    config_file = str(tmp_path / 'config.yaml')
+    run_cli(monkeypatch, 'config', 'plp', '--pitch', 'kaldi', '--cmvn',
+            '--delta', '-o', config_file)
+    with open(config_file) as stream:
+        config = yaml.safe_load(stream)
+    config['plp']['rasta'] = True
+    config['plp']['dither'] = 0
+    config['pitch']['postprocessing']['delta_pitch_noise_stddev'] = 0
+    with open(config_file, 'w') as stream:
+        yaml.safe_dump(config, stream)
+
+    output = str(tmp_path / 'features.npz')
+    run_cli(monkeypatch, 'extract', '-q', '--device', 'cpu', config_file,
+            corpus, output)
+    saved = FeaturesCollection.load(output)
+    ref = pipeline.extract_features(
+        config_file, Utterances.load(corpus), device='cpu')
+    assert sorted(saved.keys()) == sorted(ref.keys()) == ['real', 'u0', 'u1']
+    for name in ref:
+        assert saved[name].shape == ref[name].shape
+        assert saved[name].shape[1] == 42
+        assert np.array_equal(saved[name].data, ref[name].data)
+        assert np.array_equal(saved[name].times, ref[name].times)
+
+
+def test_extract_refuses_missing_cuda(monkeypatch, tmp_path, corpus,
+                                      capsys):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    config_file = str(tmp_path / 'config.yaml')
+    run_cli(monkeypatch, 'config', 'filterbank', '-o', config_file)
+    output = tmp_path / 'features.npz'
+    with pytest.raises(SystemExit) as error:
+        run_cli(monkeypatch, 'extract', config_file, corpus, str(output))
+    assert error.value.code == 1
+    assert 'no CUDA device' in capsys.readouterr().err
+    assert not output.exists()
+
+
+@pytest.mark.parametrize('output,message', [
+    ('features.xyz', 'unsupported extension'),
+    ('config.yaml', 'already exists')])
+def test_extract_bad_output(monkeypatch, tmp_path, corpus, capsys, output,
+                            message):
+    config_file = str(tmp_path / 'config.yaml')
+    run_cli(monkeypatch, 'config', 'spectrogram', '-o', config_file)
+    with pytest.raises(SystemExit) as error:
+        run_cli(monkeypatch, 'extract', '--device', 'cpu', config_file,
+                corpus, str(tmp_path / output))
+    assert error.value.code == 1
+    assert message in capsys.readouterr().err
+
+
+def test_module_runs_without_jax(tmp_path):
+    """``python -m shennong_tpu_torch.cli`` works and imports no jax."""
+    config_file = str(tmp_path / 'config.yaml')
+    script = (
+        'import runpy, sys\n'
+        f'sys.argv = ["speech-features-torch", "config", "spectrogram", '
+        f'"--cmvn", "-o", {config_file!r}]\n'
+        'runpy.run_module("shennong_tpu_torch.cli", run_name="__main__")\n'
+        'assert "jax" not in sys.modules, "jax was imported"\n')
+    proc = subprocess.run(
+        [sys.executable, '-c', script], cwd=REPO, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    with open(config_file) as stream:
+        assert sorted(yaml.safe_load(stream)) == ['cmvn', 'spectrogram']

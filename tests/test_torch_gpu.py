@@ -8,9 +8,11 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
 The Viterbi kernels are held against their plain PyTorch versions on
 the card (forward history bit-equal over valid frames, lags equal),
-the processors against golden_real.npz (max-abs 1e-3), and the whole
-slice on the card against the same slice on the CPU (max-abs 1e-3,
-every random source at 0).
+the processors against golden_real.npz (max-abs 1e-3) and against
+their CPU runs (1e-3), the RASTA filter and sliding-window CMVN
+against their CPU runs (1e-5), and the MFCC and RASTA-PLP slices on
+the card against the same slices on the CPU (max-abs 1e-3, every
+random source at 0).
 """
 
 import copy
@@ -25,12 +27,15 @@ import torch
 from shennong_tpu.audio import Audio
 from shennong_tpu.utterances import Utterances
 from shennong_tpu_torch import pipeline
-from shennong_tpu_torch.ops import cuda_viterbi
+from shennong_tpu_torch.ops import cuda_viterbi, plp, postops
 from shennong_tpu_torch.processor import energy
 from shennong_tpu_torch.processor.energy import EnergyProcessor
+from shennong_tpu_torch.processor.filterbank import FilterbankProcessor
 from shennong_tpu_torch.processor.mfcc import MfccProcessor
 from shennong_tpu_torch.processor.pitch_kaldi import (
     KaldiPitchPostProcessor, KaldiPitchProcessor)
+from shennong_tpu_torch.processor.plp import PlpProcessor
+from shennong_tpu_torch.processor.spectrogram import SpectrogramProcessor
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REAL_WAV = os.path.join(REPO, 'tests', 'data', 'test.wav')
@@ -97,7 +102,43 @@ def test_processors_golden(cuda_device):
         assert np.abs(features.data - golden[name]).max() < 1e-3, name
 
 
-def test_slice_matches_cpu(cuda_device, tmp_path, monkeypatch):
+@pytest.mark.parametrize('name', ['fbank', 'spectrogram', 'plp',
+                                  'rastaplp'])
+def test_frontends_golden(cuda_device, name):
+    audio = Audio.load(REAL_WAV)
+    golden = np.load(os.path.join(REPO, 'tests', 'data', 'golden_real.npz'))
+    proc = {'fbank': FilterbankProcessor(dither=0),
+            'spectrogram': SpectrogramProcessor(dither=0),
+            'plp': PlpProcessor(dither=0),
+            'rastaplp': PlpProcessor(dither=0, rasta=True)}[name]
+    ours = proc.process(audio, device=cuda_device).data
+    assert ours.shape == golden[name].shape
+    assert np.abs(ours - golden[name]).max() < 1e-3
+    assert np.abs(ours - proc.process(audio, device='cpu').data).max() < 1e-3
+
+
+def test_rasta_and_sliding_cmvn_match_cpu(cuda_device):
+    rng = np.random.RandomState(0)
+    log_mel = (rng.uniform(8, 20, (3, 1, 23))
+               + rng.randn(3, 700, 23)).astype(np.float32)
+    nframes = torch.tensor([700, 300, 3], dtype=torch.int32)
+    on_cpu = plp.rasta_filter(torch.from_numpy(log_mel), nframes)
+    on_cuda = plp.rasta_filter(
+        torch.from_numpy(log_mel).to(cuda_device), nframes.to(cuda_device))
+    assert np.abs(on_cuda.cpu().numpy() - on_cpu.numpy()).max() < 1e-5
+    on_cpu = postops.sliding_window_cmvn(
+        torch.from_numpy(log_mel), nframes, normalize_variance=True)
+    on_cuda = postops.sliding_window_cmvn(
+        torch.from_numpy(log_mel).to(cuda_device), nframes.to(cuda_device),
+        normalize_variance=True)
+    for row, valid in enumerate(nframes.tolist()):
+        assert np.abs(on_cuda[row, :valid].cpu().numpy()
+                      - on_cpu[row, :valid].numpy()).max() < 1e-5
+
+
+@pytest.fixture
+def corpus(tmp_path, monkeypatch):
+    """4 utterances of 2 speakers, the energy VAD's dither at 0."""
     defaults = list(energy.EnergyProcessor.__init__.__defaults__)
     defaults[3] = 0.0  # the energy VAD's dither
     monkeypatch.setattr(
@@ -114,17 +155,27 @@ def test_slice_matches_cpu(cuda_device, tmp_path, monkeypatch):
             wav, 16000, (signal / np.abs(signal).max() * 20000).astype(
                 np.int16))
         entries.append((f'u{index}', wav, f'spk{1 + index % 2}'))
+    return Utterances(entries)
+
+
+@pytest.mark.parametrize('features', ['mfcc', 'plp'])
+def test_slice_matches_cpu(cuda_device, corpus, features):
+    """The MFCC slice, and the RASTA-PLP slice of the same shape."""
     config = pipeline.get_default_config(
-        'mfcc', with_pitch='kaldi', with_cmvn=True, with_delta=True)
-    config['mfcc']['dither'] = 0
+        features, with_pitch='kaldi', with_cmvn=True, with_delta=True)
+    config[features]['dither'] = 0
+    if features == 'plp':
+        config['plp']['rasta'] = True
     config['pitch']['postprocessing']['delta_pitch_noise_stddev'] = 0
 
     cuda_viterbi.reset_launches()
     on_cuda = pipeline.extract_features(
-        copy.deepcopy(config), Utterances(entries), device=cuda_device)
+        copy.deepcopy(config), corpus, device=cuda_device)
     assert min(cuda_viterbi.LAUNCHES.values()) > 0
     on_cpu = pipeline.extract_features(
-        copy.deepcopy(config), Utterances(entries), device='cpu')
+        copy.deepcopy(config), corpus, device='cpu')
     for name in on_cpu:
         assert on_cuda[name].shape == on_cpu[name].shape
+        assert on_cuda[name].shape[1] == 42
+        assert np.isfinite(on_cuda[name].data).all()
         assert np.abs(on_cuda[name].data - on_cpu[name].data).max() < 1e-3

@@ -104,15 +104,16 @@ def test_config_roundtrip_yaml():
 
 
 @pytest.mark.parametrize('features,pitch', [
-    ('plp', False), ('filterbank', False), ('mfcc', 'crepe')])
+    ('bottleneck', False), ('plp', 'crepe'), ('mfcc', 'crepe')])
 def test_not_ported_raises(features, pitch):
     with pytest.raises(NotImplementedError):
         pipeline.get_default_config(features, with_pitch=pitch)
 
 
 def test_manager_resolves_port_classes():
-    for name in ('mfcc', 'energy', 'kaldi_pitch', 'kaldi_pitch_post',
-                 'cmvn', 'delta', 'vad'):
+    for name in ('spectrogram', 'filterbank', 'mfcc', 'plp', 'energy',
+                 'kaldi_pitch', 'kaldi_pitch_post', 'cmvn',
+                 'sliding_window_cmvn', 'delta', 'vad'):
         cls = PipelineManager.get_processor_class(name)
         assert cls.__module__.startswith('shennong_tpu_torch.'), name
     with pytest.raises(ValueError):
