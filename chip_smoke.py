@@ -15,9 +15,15 @@ generated corpus of 256 utterances (4 s and 6 s, 16 speakers):
   their profiler spans;
 - the filterbank (CMVN + deltas) and spectrogram (CMVN) passes;
 - the ``speech-features-torch`` CLI, ``config`` then ``extract
-  --device cuda`` on 16 utterances, against the in-process result.
+  --device cuda`` on 16 utterances, against the in-process result;
+- long audio: one hour of audio plus 16 utterances through the MFCC
+  slice (the stage-wise pass 1, the hour in chunks), chunked against
+  whole extraction on a 12-minute utterance, both kernels at the chunk
+  shape of hour-scale pitch [8, 8400, 417], and the stage-wise and
+  mixed-sample-rate paths on the card against the CPU.
 
-Both slices must go through both Viterbi kernels. Every phase prints
+Both slices and the long-audio run must go through both Viterbi
+kernels. Every phase prints
 its lines; any failure raises and the script exits non-zero. The
 second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is the JSON verdict.
@@ -42,6 +48,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_TOL = 1e-3        # the contract of tests/test_real_audio.py
 SLICE_TOL = 1e-3         # cuda vs cpu on the whole slice
+ORACLE_SECONDS = 10.0    # longest audio a lag tie is proven on by the oracle
 NUM_UTTERANCES = 256
 NUM_SPEAKERS = 16
 DURATIONS = (4.0, 6.0)   # seconds, alternating
@@ -107,15 +114,72 @@ def build_kernels():
 
 # ---------------------------------------------------------- kernel vs plain
 
-def kernels_vs_plain():
-    """Every kernel against its plain version on the card: the forward
-    history bit-equal over each row's valid frames, the lags equal."""
+def hold_kernels(shape, bounds, rng, errors):
+    """Both kernels against their plain versions on random costs of
+    ``shape``, row ``i`` holding ``bounds[i]`` frames: the forward
+    history bit-equal over each row's valid frames, the lags equal. The
+    max-abs errors go into ``errors``; returns (cost, counts, history)
+    for timing."""
     from shennong_tpu_torch.ops import cuda_viterbi
+    from shennong_tpu_torch.ops.pitch import PitchOpts, inter_frame_factor
+
+    factor = inter_frame_factor(PitchOpts())
+    cost = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda()
+    counts = torch.tensor(bounds, dtype=torch.int32, device='cuda')
+    hist = cuda_viterbi.viterbi_forward(cost, counts, factor)
+    plain = cuda_viterbi.viterbi_forward_plain(cost, counts, factor)
+    best = cuda_viterbi.viterbi_backtrace(hist, counts, factor)
+    best_plain = cuda_viterbi.viterbi_backtrace_plain(plain, counts, factor)
+    torch.cuda.synchronize()
+    for row, bound in enumerate(bounds):
+        # frame 0 is computed even for empty rows
+        valid = max(bound, 1)
+        mine, ref = hist[:valid, row], plain[:valid, row]
+        check(torch.equal(mine, ref),
+              f'forward history differs at {shape} row {row}')
+        errors['viterbi_forward'] = max(
+            errors['viterbi_forward'], float((mine - ref).abs().max()))
+        check(torch.equal(best[:bound, row], best_plain[:bound, row]),
+              f'backtrace lags differ at {shape} row {row}')
+        if bound:
+            errors['viterbi_backtrace'] = max(
+                errors['viterbi_backtrace'],
+                float((best[:bound, row] - best_plain[:bound, row])
+                      .abs().max()))
+    return cost, counts, hist
+
+
+def time_kernels(phase, shape, cost, counts, hist, plain_repeats):
+    """Kernel and plain milliseconds of both kernels (CUDA events), by
+    kernel name."""
+    from shennong_tpu_torch.ops import cuda_viterbi
+    from shennong_tpu_torch.ops.pitch import PitchOpts, inter_frame_factor
+
+    factor = inter_frame_factor(PitchOpts())
+    times = {
+        'viterbi_forward': (
+            cuda_ms(lambda: cuda_viterbi.viterbi_forward(
+                cost, counts, factor), 10),
+            cuda_ms(lambda: cuda_viterbi.viterbi_forward_plain(
+                cost, counts, factor), plain_repeats)),
+        'viterbi_backtrace': (
+            cuda_ms(lambda: cuda_viterbi.viterbi_backtrace(
+                hist, counts, factor), 10),
+            cuda_ms(lambda: cuda_viterbi.viterbi_backtrace_plain(
+                hist, counts, factor), plain_repeats)),
+    }
+    for name, (ms, plain_ms) in times.items():
+        say(phase, f'{name} at {shape}: kernel {ms:.3f} ms, '
+            f'plain {plain_ms:.3f} ms (CUDA events)')
+    return times
+
+
+def kernels_vs_plain():
+    """Every kernel against its plain version on the card, at the main
+    path's shape and at edge shapes; timed at the main path's shape."""
     from shennong_tpu_torch.ops.pitch import PitchOpts, num_pitch_frames
 
-    opts = PitchOpts()
-    factor = opts.penalty_factor * math.log(1.0 + opts.delta_pitch) ** 2
-    main_frames = num_pitch_frames(int(DURATIONS[1] * RATE), opts)
+    main_frames = num_pitch_frames(int(DURATIONS[1] * RATE), PitchOpts())
     rng = np.random.RandomState(0)
     main = ((64, main_frames, 417), [main_frames] * 32 + [
         int(n) for n in rng.randint(0, main_frames + 1, 32)])
@@ -130,53 +194,12 @@ def kernels_vs_plain():
     ]
     errors = {'viterbi_forward': 0.0, 'viterbi_backtrace': 0.0}
     for shape, bounds in cases:
-        cost = torch.from_numpy(
-            rng.rand(*shape).astype(np.float32)).cuda()
-        counts = torch.tensor(bounds, dtype=torch.int32, device='cuda')
-        hist = cuda_viterbi.viterbi_forward(cost, counts, factor)
-        plain = cuda_viterbi.viterbi_forward_plain(cost, counts, factor)
-        best = cuda_viterbi.viterbi_backtrace(hist, counts, factor)
-        best_plain = cuda_viterbi.viterbi_backtrace_plain(
-            plain, counts, factor)
-        torch.cuda.synchronize()
-        for row, bound in enumerate(bounds):
-            # frame 0 is computed even for empty rows
-            valid = max(bound, 1)
-            mine, ref = hist[:valid, row], plain[:valid, row]
-            check(torch.equal(mine, ref),
-                  f'forward history differs at {shape} row {row}')
-            errors['viterbi_forward'] = max(
-                errors['viterbi_forward'],
-                float((mine - ref).abs().max()))
-            check(torch.equal(best[:bound, row], best_plain[:bound, row]),
-                  f'backtrace lags differ at {shape} row {row}')
-            if bound:
-                errors['viterbi_backtrace'] = max(
-                    errors['viterbi_backtrace'],
-                    float((best[:bound, row] - best_plain[:bound, row])
-                          .abs().max()))
+        held = hold_kernels(shape, bounds, rng, errors)
+        if shape == main[0]:
+            timed = held
         say('kernels', f'{shape}, nframes from {min(bounds)} to '
             f'{max(bounds)}: history bit-equal, lags equal')
-
-    shape, bounds = main
-    cost = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda()
-    counts = torch.tensor(bounds, dtype=torch.int32, device='cuda')
-    hist = cuda_viterbi.viterbi_forward(cost, counts, factor)
-    times = {
-        'viterbi_forward': (
-            cuda_ms(lambda: cuda_viterbi.viterbi_forward(
-                cost, counts, factor), 10),
-            cuda_ms(lambda: cuda_viterbi.viterbi_forward_plain(
-                cost, counts, factor), 3)),
-        'viterbi_backtrace': (
-            cuda_ms(lambda: cuda_viterbi.viterbi_backtrace(
-                hist, counts, factor), 10),
-            cuda_ms(lambda: cuda_viterbi.viterbi_backtrace_plain(
-                hist, counts, factor), 3)),
-    }
-    for name, (ms, plain_ms) in times.items():
-        say('kernels', f'{name} at {shape}: kernel {ms:.3f} ms, '
-            f'plain {plain_ms:.3f} ms (CUDA events)')
+    times = time_kernels('kernels', main[0], *timed, plain_repeats=3)
     return errors, times
 
 
@@ -248,17 +271,17 @@ def frontends_golden(audio, golden):
 
 # ------------------------------------------------------------------ slice
 
-def speech_like(nsamples, seed):
+def speech_like(nsamples, seed, rate=RATE):
     """Speech-like int16 waveform: voiced harmonics with a wandering
     F0 under a syllabic envelope, a little noise, a leading silence."""
     rng = np.random.RandomState(seed)
-    t = np.arange(nsamples) / RATE
+    t = np.arange(nsamples) / rate
     f0 = 100 + 80 * rng.rand() + 30 * np.sin(2 * np.pi * 0.7 * t)
-    phase = 2 * np.pi * np.cumsum(f0) / RATE
+    phase = 2 * np.pi * np.cumsum(f0) / rate
     voiced = sum((0.6 ** k) * np.sin((k + 1) * phase) for k in range(8))
     envelope = (0.5 * (1 + np.sin(2 * np.pi * (2.5 + rng.rand()) * t)))
     envelope = envelope ** 2
-    envelope[:int(0.05 * RATE)] = 0
+    envelope[:int(0.05 * rate)] = 0
     signal = voiced * envelope * 0.4 + rng.randn(nsamples) * 0.02
     signal = signal / np.max(np.abs(signal)) * 0.7
     return (signal * 2 ** 15 * 0.8).astype(np.int16)
@@ -336,10 +359,6 @@ def the_slice(card, entries, features):
     from shennong_tpu_torch import Utterances
     from shennong_tpu_torch import pipeline
     from shennong_tpu_torch.ops import cuda_viterbi
-    from shennong_tpu_torch.processor import energy as energy_module
-    from shennong_tpu_torch.processor.pitch_kaldi import KaldiPitchProcessor
-
-    from tests.pitch_oracle import assert_lag_decisions
 
     phase = f'{features} slice'
     config = slice_config(features)
@@ -374,38 +393,116 @@ def the_slice(card, entries, features):
     profile_layers(phase, config, utterances, seconds)
 
     # 8 utterances with every random source at 0: cuda against cpu
-    subset = Utterances(entries[:8])
+    worst, ties = cuda_against_cpu(
+        config, features, Utterances(entries[:8]), pitch_batched)
+    say(phase, f'cuda vs cpu on 8 utterances, no randomness: max-abs '
+        f'{worst:.3g} < {SLICE_TOL} ({ties} with proven lag ties)')
+    return launches, xrt
+
+
+def pitch_batched(utterances, device):
+    """Raw Kaldi pitch as the fused and stage-wise pass 1 compute it:
+    in padded length-sorted batches (one sample rate)."""
+    from shennong_tpu_torch.processor.pitch_kaldi import KaldiPitchProcessor
+
+    raw = KaldiPitchProcessor().process_all(utterances, device=device)
+    return {name: raw[name].data for name in raw}
+
+
+def pitch_per_utterance(utterances, device):
+    """Raw Kaldi pitch as the per-utterance pass 1 computes it."""
+    from shennong_tpu_torch.processor.pitch_kaldi import KaldiPitchProcessor
+
+    raw = {}
+    for utt in utterances:
+        audio = utt.load_audio()
+        raw[utt.name] = KaldiPitchProcessor(
+            sample_rate=audio.sample_rate).process(audio, device=device).data
+    return raw
+
+
+def cuda_against_cpu(config, features, utterances, raw_pitch, warps=None):
+    """``extract_features`` on the card and on the CPU with every random
+    source at 0 (the energy VAD's dither too): the max-abs between the
+    two, under SLICE_TOL, and the count of utterances whose pitch lags
+    differ, each difference a proven tie. ``raw_pitch(utterances,
+    device)`` recomputes the raw pitch as the path under test does,
+    batches included. The witness of a tie is the float64 oracle
+    (tests/pitch_oracle.py) up to ORACLE_SECONDS of audio and the
+    float64 path costs of the port's whole-signal program
+    (tests/lag_ties.py) past them, where the oracle's Python loops are
+    too slow. Where lags differ, the two log-pitch columns, which move
+    with the lag over their windows, are left out, and the POV is held
+    at every frame: CUDA against the CPU where the lags agree, each
+    against its own NCCF at the ties (the ballast-free NCCF of two tied
+    lags can differ widely, as in unvoiced frames)."""
+    from shennong_tpu_torch import pipeline
+    from shennong_tpu_torch.processor import energy as energy_module
+    from shennong_tpu_torch.processor.pitch_kaldi import KaldiPitchProcessor
+
+    from tests.lag_ties import assert_ties
+    from tests.pitch_oracle import assert_lag_decisions, process_pitch
+
     defaults = energy_module.EnergyProcessor.__init__.__defaults__
     energy_module.EnergyProcessor.__init__.__defaults__ = (
         defaults[:3] + (0.0,) + defaults[4:])
     try:
         on = {device: pipeline.extract_features(
-            zero_randomness(copy.deepcopy(config), features), subset,
-            device=device)
+            zero_randomness(copy.deepcopy(config), features), utterances,
+            warps=warps, device=device)
             for device in ('cuda', 'cpu')}
     finally:
         energy_module.EnergyProcessor.__init__.__defaults__ = defaults
+    raw = {device: raw_pitch(utterances, device)
+           for device in ('cuda', 'cpu')}
     worst = 0.0
     ties = 0
-    for utt in subset:
+    for utt in utterances:
         gpu, cpu = on['cuda'][utt.name].data, on['cpu'][utt.name].data
         check(gpu.shape == cpu.shape, f'{utt.name}: shapes differ')
         columns = gpu.shape[1]
-        audio = utt.load_audio()
-        raw = {device: KaldiPitchProcessor().process(
-            audio, device=device).data for device in ('cuda', 'cpu')}
-        if not np.array_equal(raw['cuda'][:, 1], raw['cpu'][:, 1]):
+        ours, ref = raw['cuda'][utt.name], raw['cpu'][utt.name]
+        if not np.array_equal(ours[:, 1], ref[:, 1]):
             # a lag decision that differs must be a proven tie
-            assert_lag_decisions(
-                audio.data.astype(np.float64), raw['cuda'], raw['cpu'])
+            audio = utt.load_audio()
+            if utt.duration <= ORACLE_SECONDS:
+                same = assert_lag_decisions(
+                    audio.data.astype(np.float64), ours, ref,
+                    rate=audio.sample_rate)
+                witness = 'the float64 oracle'
+            else:
+                assert_ties(
+                    audio.astype(np.int16).data, KaldiPitchProcessor(
+                        sample_rate=audio.sample_rate).options(),
+                    ours, ref, 'cpu')
+                witness = 'the float64 path costs'
+                same = np.isclose(ours[:, 1], ref[:, 1], rtol=1e-4)
             ties += 1
-            columns = 40  # features + deltas + pov; pitch columns moved
-        err = float(np.abs(gpu[:, :columns] - cpu[:, :columns]).max())
-        check(err < SLICE_TOL, f'{utt.name}: cuda vs cpu max-abs {err}')
-        worst = max(worst, err)
-    say(phase, f'cuda vs cpu on 8 utterances, no randomness: max-abs '
-        f'{worst:.3g} < {SLICE_TOL} ({ties} with proven lag ties)')
-    return launches, xrt
+            # the POV is per frame: equal where the lags agree, and at a
+            # tie each device's POV is the oracle's post-processing of
+            # its own NCCF at its own lag
+            pov = columns - 3
+            rows = gpu.shape[0]
+            same = same[:rows]
+            agree = float(np.abs(gpu[same, pov] - cpu[same, pov]).max())
+            tied = max(
+                float(np.abs(out[~same, pov] - process_pitch(
+                    raw_track[:rows][~same].astype(np.float64),
+                    add_norm=False, add_delta=False)[:, 0]).max())
+                for out, raw_track in ((gpu, ours), (cpu, ref)))
+            check(max(agree, tied) < SLICE_TOL, f'{utt.name}: POV max-abs '
+                  f'{agree} where the lags agree, {tied} at the ties')
+            say('cuda vs cpu', f'{utt.name}: {int((~same).sum())} of '
+                f'{len(ours)} lags differ, ties by {witness}; POV max-abs '
+                f'{agree:.3g} where the lags agree, {tied:.3g} against the '
+                'oracle\'s POV of each device\'s NCCF at the ties')
+            columns = pov  # features + deltas
+        diff = np.abs(gpu[:, :columns] - cpu[:, :columns])
+        frame, column = np.unravel_index(diff.argmax(), diff.shape)
+        check(diff.max() < SLICE_TOL, f'{utt.name}: cuda vs cpu max-abs '
+              f'{diff.max()} at frame {frame}, column {column}')
+        worst = max(worst, float(diff.max()))
+    return worst, ties
 
 
 def frontends_pass(card, entries):
@@ -501,8 +598,227 @@ def cli_phase(workdir, entries):
         f'included); .npz against in-process: max-abs {worst:.3g} < 1e-5')
 
 
+# ------------------------------------------------------------- long audio
+
+def write_wav(path, seconds, seed, rate=RATE):
+    """A speech-like mono int16 WAV of ``seconds``, written a minute at
+    a time so host memory stays bounded."""
+    import wave
+
+    with wave.open(path, 'wb') as stream:
+        stream.setnchannels(1)
+        stream.setsampwidth(2)
+        stream.setframerate(rate)
+        for minute in range(int(math.ceil(seconds / 60))):
+            count = int(min(60, seconds - 60 * minute) * rate)
+            stream.writeframes(
+                speech_like(count, seed=seed + minute, rate=rate).tobytes())
+    return path
+
+
+def long_audio(card, workdir, entries):
+    """Hour-scale audio and the stage-wise path on the card.
+
+    1. ``extract_features`` (the MFCC slice) over one hour and 16
+       corpus utterances: the stage-wise path, its chunked routes and
+       both Viterbi kernels; shapes, finiteness, wall and xRT.
+    2. A 12-minute utterance (71998 frames, past AUTO_CHUNK_FRAMES):
+       auto-routed (chunked) ``process`` against forced-whole
+       extraction for the six processors, dither 0.
+    3. Both kernels against their plain versions at the chunk shape of
+       hour-scale pitch, [8, 8400, 417].
+    4. CUDA against the CPU on a stage-wise corpus and on a corpus of
+       mixed sample rates with warps by speaker.
+
+    Returns the Viterbi launches of step 1 and the kernels' max-abs
+    errors of step 3.
+    """
+    from shennong_tpu_torch import Audio, Utterances
+    from shennong_tpu_torch import pipeline
+    from shennong_tpu_torch.ops import cuda_viterbi
+
+    phase = 'long audio'
+    start = time.perf_counter()
+    hour = write_wav(os.path.join(workdir, 'hour.wav'), 3600, seed=1000)
+    say(phase, f'one hour of audio written in '
+        f'{time.perf_counter() - start:.1f} s')
+
+    config = slice_config('mfcc')
+    utterances = Utterances([('hour', hour, 'spkH')] + entries[:16])
+    audio_seconds = sum(utt.duration for utt in utterances)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_viterbi.reset_launches()
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    out = pipeline.extract_features(
+        copy.deepcopy(config), utterances, device='cuda')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - begin
+    launches = dict(cuda_viterbi.LAUNCHES)
+    for name, count in launches.items():
+        check(count > 0, f'the {phase} run never launched {name}')
+    for utt in utterances:
+        nsamples = int(round(utt.duration * RATE))
+        check(out[utt.name].shape == (expected_frames(nsamples), 42),
+              f'{utt.name}: shape {out[utt.name].shape}')
+        check(np.isfinite(out[utt.name].data).all(),
+              f'{utt.name}: non-finite')
+    say(phase, f'extract_features, MFCC slice, 1 h + 16 utterances '
+        f'({audio_seconds:.0f} s of audio, the hour {out["hour"].shape}): '
+        f'wall {wall:.3f} s, xRT {audio_seconds / wall:.1f}, peak device '
+        f'memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on '
+        f'{card}; launches {launches}')
+    profile_layers(phase, config, utterances, wall)
+    hour_stages(phase, Audio.load(hour))
+
+    chunked_against_whole(phase, write_wav(
+        os.path.join(workdir, 'twelve.wav'), 720, seed=2000))
+    errors = chunk_shape_kernels(phase)
+
+    # CUDA against the CPU: a 90 s utterance past a lowered features
+    # limit, cut in chunks of 3000 frames, sends the corpus down the
+    # stage-wise path on both devices
+    from shennong_tpu_torch.processor.base import FramesProcessor
+    from shennong_tpu_torch.processor.mfcc import MfccProcessor
+
+    stagewise = Utterances([('long', write_wav(
+        os.path.join(workdir, 'ninety.wav'), 90, seed=3000), 'spk00')]
+        + entries[:4])
+    limit = MfccProcessor.AUTO_CHUNK_FRAMES
+    chunking = FramesProcessor.process_chunked.__defaults__
+    MfccProcessor.AUTO_CHUNK_FRAMES = 6000
+    FramesProcessor.process_chunked.__defaults__ = (3000,) + chunking[1:]
+    try:
+        worst, ties = cuda_against_cpu(
+            config, 'mfcc', stagewise, pitch_batched)
+    finally:
+        MfccProcessor.AUTO_CHUNK_FRAMES = limit
+        FramesProcessor.process_chunked.__defaults__ = chunking
+    say(phase, f'cuda vs cpu, stage-wise path (90 s in chunks of 3000 '
+        f'frames + 4 utterances): max-abs {worst:.3g} < {SLICE_TOL} '
+        f'({ties} with proven lag ties)')
+
+    mixed = entries[:6] + [
+        (f'narrow{index}', write_wav(
+            os.path.join(workdir, f'narrow{index}.wav'), 4.0,
+            seed=4000 + index, rate=8000), f'spk{index:02d}')
+        for index in range(2)]
+    warps = {f'spk{index:02d}': 0.88 + 0.04 * index for index in range(6)}
+    worst, ties = cuda_against_cpu(
+        config, 'mfcc', Utterances(mixed), pitch_per_utterance,
+        warps=warps)
+    say(phase, f'cuda vs cpu, 6 utterances at 16 kHz and 2 at 8 kHz, '
+        f'warps by speaker: max-abs {worst:.3g} < {SLICE_TOL} ({ties} '
+        f'with proven lag ties)')
+    say(phase, f'phase time {time.perf_counter() - start:.1f} s')
+    return launches, errors
+
+
+def hour_stages(phase, audio):
+    """The hour's chunked routes alone, each timed on the card: MFCC
+    (20000-frame chunks) and Kaldi pitch (8000-frame chunks in groups
+    of 8)."""
+    from shennong_tpu_torch.processor.mfcc import MfccProcessor
+    from shennong_tpu_torch.processor.pitch_kaldi import KaldiPitchProcessor
+
+    for name, proc in (('MFCC', MfccProcessor()),
+                       ('pitch', KaldiPitchProcessor())):
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        shape = proc.process(audio, device='cuda').shape
+        torch.cuda.synchronize()
+        say(phase, f'the hour\'s {name} alone {shape}: '
+            f'{time.perf_counter() - begin:.3f} s')
+
+
+def chunked_against_whole(phase, path):
+    """Auto-routed (chunked) extraction of a 12-minute utterance against
+    forced-whole extraction on the card, dither 0: 1e-4 for the
+    frame-local processors, 1e-3 for RASTA-PLP (the bounds of
+    tests/test_chunked.py); the pitch tracker's 16k -> 4k resample
+    bit-equal; pitch lags equal or ties of the whole program's costs
+    (tests/lag_ties.py)."""
+    from shennong_tpu_torch import Audio
+    from shennong_tpu_torch.ops import cuda_viterbi, resample
+    from shennong_tpu_torch.processor.energy import EnergyProcessor
+    from shennong_tpu_torch.processor.filterbank import FilterbankProcessor
+    from shennong_tpu_torch.processor.mfcc import MfccProcessor
+    from shennong_tpu_torch.processor.pitch_kaldi import KaldiPitchProcessor
+    from shennong_tpu_torch.processor.plp import PlpProcessor
+    from shennong_tpu_torch.processor.spectrogram import (
+        SpectrogramProcessor)
+
+    from tests.lag_ties import assert_ties
+
+    audio = Audio.load(path)
+    cases = {
+        'mfcc': (MfccProcessor(dither=0), 1e-4),
+        'filterbank': (FilterbankProcessor(dither=0), 1e-4),
+        'spectrogram': (SpectrogramProcessor(dither=0), 1e-4),
+        'energy': (EnergyProcessor(dither=0), 1e-4),
+        'plp': (PlpProcessor(dither=0), 1e-4),
+        'rastaplp': (PlpProcessor(dither=0, rasta=True), 1e-3),
+    }
+    for name, (proc, bound) in cases.items():
+        routed = proc.process(audio, device='cuda')
+        whole = proc.process_chunked(
+            audio, chunk_frames=10 ** 9, device='cuda')
+        check(routed.shape == whole.shape == (71998, proc.ndims),
+              f'{name}: shapes {routed.shape}, {whole.shape}')
+        err = float(np.abs(routed.data - whole.data).max())
+        check(err < bound, f'{name}: chunked vs whole max-abs {err}')
+        say(phase, f'12 min {name} {routed.shape}: chunked vs whole '
+            f'max-abs {err:.3g} < {bound}')
+
+    proc = KaldiPitchProcessor()
+    opts = proc.options()
+    signal = audio.data.astype(np.float32)
+    args = (opts.sample_rate, opts.resample_freq, opts.lowpass_cutoff,
+            opts.lowpass_filter_width)
+    chunked = resample.linear_resample_chunked(signal, *args, device='cuda')
+    whole = resample.linear_resample(
+        torch.as_tensor(signal, device='cuda')[None], signal.shape[0],
+        *args)[0]
+    check(torch.equal(torch.as_tensor(chunked, device='cuda'), whole),
+          'the chunked resample differs from the whole-signal one')
+    say(phase, f'12 min resample {signal.shape[0]} -> {chunked.shape[0]} '
+        'samples: linear_resample_chunked bit-equal to the whole-signal '
+        'linear_resample')
+
+    cuda_viterbi.reset_launches()
+    routed = proc.process(audio, device='cuda').data
+    chunked_launches = dict(cuda_viterbi.LAUNCHES)
+    proc.AUTO_CHUNK_FRAMES = None
+    cuda_viterbi.reset_launches()
+    whole = proc.process(audio, device='cuda').data
+    check(cuda_viterbi.LAUNCHES == {
+        'viterbi_forward': 1, 'viterbi_backtrace': 1},
+        f'the whole pitch launched {cuda_viterbi.LAUNCHES}')
+    differ, margin, nccf = assert_ties(
+        audio.data, proc.options(), routed, whole, 'cuda')
+    say(phase, f'12 min pitch {routed.shape}: chunked (launches '
+        f'{chunked_launches}) vs whole ([1, {whole.shape[0]}, 417]): '
+        f'{differ} lags differ (largest tie margin {margin:.3g} < 1e-4), '
+        f'NCCF max-abs {nccf:.3g} where they agree')
+
+
+def chunk_shape_kernels(phase):
+    """Both kernels against their plain versions at [8, 8400, 417], rows
+    of full, partial and zero frames: the forward history bit-equal,
+    the lags equal; kernel and plain ms from CUDA events."""
+    bounds = [8400, 8400, 8400, 8400, 5000, 1, 0, 2300]
+    shape = (8, 8400, 417)
+    errors = {'viterbi_forward': 0.0, 'viterbi_backtrace': 0.0}
+    held = hold_kernels(shape, bounds, np.random.RandomState(8), errors)
+    say(phase, f'kernels at {shape}, nframes {bounds}: history '
+        'bit-equal, lags equal')
+    time_kernels(phase, shape, *held, plain_repeats=2)
+    return errors
+
+
 #: the port's profiler spans (torch.profiler.record_function)
-SPANS = ('pass1.dispatch', 'pass1.wait', 'pass2', 'plp.rasta', 'plp.durbin')
+SPANS = ('pass1.dispatch', 'pass1.wait', 'batch.dispatch', 'batch.wait',
+         'batch.chunked', 'pass2', 'plp.rasta', 'plp.durbin')
 
 
 def profile_layers(phase, config, utterances, wall_s):
@@ -565,6 +881,10 @@ def main():
                 launches[name] += count
         frontends_pass(card, entries)
         cli_phase(workdir, entries)
+        counts, chunk_errors = long_audio(card, workdir, entries)
+        for name, count in counts.items():
+            launches[name] += count
+            errors[name] = max(errors[name], chunk_errors[name])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

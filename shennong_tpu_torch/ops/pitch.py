@@ -178,10 +178,15 @@ def compute_pitch(signals, nsamples, opts, nframes_max):
     t = torch.arange(resampled.shape[1], device=resampled.device)[None, :]
     resampled = torch.where(t < num_rs[:, None], resampled, 0.0)
 
-    # mean square over the real samples (for the NCCF ballast)
-    denom = torch.clamp_min(num_rs.to(torch.float32), 1.0)
-    mean = resampled.sum(dim=1) / denom
-    mean_square = (resampled * resampled).sum(dim=1) / denom - mean * mean
+    # mean square over the real samples (for the NCCF ballast),
+    # accumulated in float64 as Kaldi does: a float32 sum rounds by the
+    # reduction order (CPU threads, CUDA blocks), and the chunked route
+    # (compute_pitch_long) takes the same statistic in float64
+    wide = resampled.to(torch.float64)
+    denom = torch.clamp_min(num_rs.to(torch.float64), 1.0)
+    mean = wide.sum(dim=1) / denom
+    mean_square = ((wide * wide).sum(dim=1) / denom
+                   - mean * mean).to(torch.float32)
 
     nframes = pitch_num_frames_device(num_rs, opts)
     return pitch_from_resampled(
@@ -197,6 +202,37 @@ def pitch_from_resampled(resampled, nframes, mean_square, opts,
     frame counts (frames past it are Viterbi pass-through) and
     ``mean_square`` the per-row ballast statistic. Returns
     [B, nframes_max, 2].
+    """
+    local_cost, nccf_pov, upsample, lags_f32 = nccf_costs(
+        resampled, mean_square, opts, nframes_max)
+
+    # 5. Viterbi lag selection
+    best = cuda_viterbi.viterbi_lags(
+        local_cost, inter_frame_factor(opts), nframes).to(torch.int64)
+
+    # 6. (NCCF, pitch); the POV-ballast NCCF is only needed at the
+    # selected lag, so its upsampling evaluates one matrix row per frame
+    pitch = 1.0 / lags_f32[best]
+    rows = upsample[best]  # [B, F, nlags_int]
+    nccf_out = (nccf_pov * rows).sum(dim=-1)
+    return torch.stack([nccf_out, pitch], dim=-1)
+
+
+def inter_frame_factor(opts):
+    """Weight of the squared lag-index step in the Viterbi transition
+    cost."""
+    return opts.penalty_factor * math.log(1.0 + opts.delta_pitch) ** 2
+
+
+def nccf_costs(resampled, mean_square, opts, nframes_max):
+    """The inputs of the Viterbi lag selection, as
+    :func:`pitch_from_resampled` takes them.
+
+    Returns ``(local_cost [B, F, L], nccf_pov [B, F, nlags_int],
+    upsample [L, nlags_int], lags [L])``: the per-frame cost of each
+    lag of the geometric grid, the ballast-free NCCF at integer lags,
+    the matrix that upsamples it onto the grid, and the grid (seconds,
+    float32).
     """
     device = resampled.device
     shift = opts.frame_shift_samples
@@ -239,22 +275,11 @@ def pitch_from_resampled(resampled, nframes, mean_square, opts,
         device=device)
     nccf_pitch_rs = torch.einsum('bfl,gl->bfg', nccf_pitch, upsample)
 
-    # 5. Viterbi lag selection
     lags_f32 = torch.as_tensor(lags, dtype=torch.float32, device=device)
     local_cost = (
         1.0 - nccf_pitch_rs
         + opts.soft_min_f0 * lags_f32[None, None, :] * nccf_pitch_rs)
-    inter_frame_factor = (
-        opts.penalty_factor * math.log(1.0 + opts.delta_pitch) ** 2)
-    best = cuda_viterbi.viterbi_lags(
-        local_cost, inter_frame_factor, nframes).to(torch.int64)
-
-    # 6. (NCCF, pitch); the POV-ballast NCCF is only needed at the
-    # selected lag, so its upsampling evaluates one matrix row per frame
-    pitch = 1.0 / lags_f32[best]
-    rows = upsample[best]  # [B, F, nlags_int]
-    nccf_out = (nccf_pov * rows).sum(dim=-1)
-    return torch.stack([nccf_out, pitch], dim=-1)
+    return local_cost, nccf_pov, upsample, lags_f32
 
 
 def pitch_num_frames_device(num_rs, opts):
@@ -269,6 +294,73 @@ def pitch_num_frames_device(num_rs, opts):
                             rounding_mode='floor') + 1
     return torch.clamp_min(
         torch.where(num_rs < length, 0, nframes), 0).to(torch.int32)
+
+
+def compute_pitch_long(signal, opts, chunk_frames=8000, halo_frames=200,
+                       chunk_batch=8, *, device):
+    """Kaldi pitch of an hour-scale signal in bounded-memory chunks, on
+    ``device``.
+
+    The counterpart of :func:`shennong_tpu.ops.pitch.compute_pitch_long`,
+    with its chunk geometry: the signal is resampled in aligned chunks
+    (:func:`resample.linear_resample_chunked`), the NCCF ballast takes
+    the mean-square of the whole resampled signal accumulated in
+    float64 on the host, and the lags are selected per chunk of
+    ``chunk_frames`` frames with ``halo_frames`` context frames on each
+    side (Viterbi paths coalesce well inside a 2 s halo), ``chunk_batch``
+    chunks per :func:`pitch_from_resampled` call. ``signal`` is a 1-D
+    numpy array of int16-range samples; returns a [total_frames, 2]
+    float32 numpy array.
+    """
+    signal = np.asarray(signal, dtype=np.float32)
+    ftotal = num_pitch_frames(signal.shape[0], opts)
+    if ftotal == 0:
+        return np.zeros((0, 2), dtype=np.float32)
+
+    resampled = resample.linear_resample_chunked(
+        signal, opts.sample_rate, opts.resample_freq, opts.lowpass_cutoff,
+        opts.lowpass_filter_width, device=device)
+    nrs = resampled.shape[0]
+    mean = resampled.sum(dtype=np.float64) / nrs
+    mean_square = float(
+        np.einsum('i,i->', resampled, resampled, dtype=np.float64)
+        / nrs - mean * mean)
+
+    cf, halo = int(chunk_frames), int(halo_frames)
+    shift = opts.frame_shift_samples
+    full_window = opts.window_size_samples + opts.last_lag
+    fslice = cf + 2 * halo
+    rslice = fslice * shift + full_window
+
+    nchunks = -(-ftotal // cf)
+    starts = [max(0, c * cf - halo) for c in range(nchunks)]
+    maxend = starts[-1] * shift + rslice
+    buf = np.zeros(maxend, np.float32)
+    valid = min(nrs, maxend)
+    buf[:valid] = resampled[:valid]
+    del resampled
+
+    ms_arr = torch.full((chunk_batch,), mean_square, dtype=torch.float32,
+                        device=device)
+    out = np.empty((ftotal, 2), np.float32)
+    for group0 in range(0, nchunks, chunk_batch):
+        group = range(group0, min(group0 + chunk_batch, nchunks))
+        arr = np.zeros((chunk_batch, rslice), np.float32)
+        nframes = np.zeros((chunk_batch,), np.int32)
+        for i, c in enumerate(group):
+            lo = starts[c] * shift
+            arr[i] = buf[lo:lo + rslice]
+            nframes[i] = min(fslice, ftotal - starts[c])
+        feats = pitch_from_resampled(
+            torch.as_tensor(arr, device=device),
+            torch.as_tensor(nframes, device=device), ms_arr, opts,
+            fslice).cpu().numpy()
+        for i, c in enumerate(group):
+            keep0 = c * cf
+            keep1 = min(keep0 + cf, ftotal)
+            local = keep0 - starts[c]
+            out[keep0:keep1] = feats[i, local:local + keep1 - keep0]
+    return out
 
 
 # ---------------------------------------------------------------- post

@@ -16,6 +16,36 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from shennong_tpu_torch.ops.framing import bucket_size
+
+
+def batch_ragged(arrays, minimum=128, batch_rows=16):
+    """Group ragged [T_i, D] matrices into padded masked batches.
+
+    Yields (indices, stacked [B, bucket, D] float32 numpy, nframes [B]
+    int32 numpy) with indices into ``arrays``; grouping is by (frame
+    bucket, dim), so each batch holds matrices of similar lengths.
+    Padding rows carry one zero frame.
+    """
+    groups = {}
+    for index, data in enumerate(arrays):
+        key = (bucket_size(data.shape[0], minimum=minimum),
+               data.shape[1])
+        groups.setdefault(key, []).append(index)
+
+    for (bucket, dim), indices in sorted(groups.items()):
+        for start in range(0, len(indices), batch_rows):
+            chunk = indices[start:start + batch_rows]
+            rows = (batch_rows if len(indices) > batch_rows
+                    else len(chunk))
+            stacked = np.zeros((rows, bucket, dim), dtype=np.float32)
+            nframes = np.ones(rows, dtype=np.int32)
+            for row, index in enumerate(chunk):
+                data = arrays[index]
+                stacked[row, :data.shape[0]] = data
+                nframes[row] = data.shape[0]
+            yield chunk, stacked, nframes
+
 
 # ------------------------------------------------------------------- deltas
 

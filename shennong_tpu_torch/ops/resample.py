@@ -125,6 +125,62 @@ def linear_resample(signals, nsamples_in_max, rate_in, rate_out,
         torch.as_tensor(weights, device=signals.device))
 
 
+def linear_resample_chunked(signal, rate_in, rate_out, filter_cutoff,
+                            num_zeros, chunk_samples=1 << 21, *, device):
+    """Resample a long 1-D signal in aligned chunks on ``device``.
+
+    Bounds device memory for hour-scale audio: the signal is cut at
+    input samples that are multiples of rate_in/gcd (so every chunk's
+    outputs land on the global 1/rate_out grid) and each chunk carries
+    a halo covering the whole sinc support, zeros beyond the signal
+    edges being Kaldi's boundary truncation. For integer decimation
+    ratios (the pitch tracker's 16k -> 4k: one shared filter phase,
+    summed elementwise in a fixed order) the result is bit-identical to
+    :func:`linear_resample` on the whole signal; for other ratios the
+    per-chunk filter weights are evaluated at other absolute times,
+    leaving last-ulp (< 1e-6) differences. ``signal`` is a 1-D numpy
+    array; returns a [nout] float32 numpy array.
+    """
+    signal = np.ascontiguousarray(signal, dtype=np.float32)
+    rate_in_i, rate_out_i = int(rate_in), int(rate_out)
+    g = math.gcd(rate_in_i, rate_out_i)
+    in_r, out_r = rate_in_i // g, rate_out_i // g
+    n = signal.shape[0]
+    nout = linear_resample_num_samples(n, rate_in_i, rate_out_i)
+
+    def run(piece):
+        out = linear_resample(
+            torch.as_tensor(piece, device=device)[None], piece.shape[0],
+            float(rate_in), float(rate_out), float(filter_cutoff),
+            int(num_zeros))
+        return out[0].cpu().numpy()
+
+    width = num_zeros / (2.0 * filter_cutoff)
+    extent = int(math.ceil(width * rate_in_i)) + 2
+    halo_in = -(-extent // in_r) * in_r
+    chunk_in = max(in_r, int(chunk_samples) // in_r * in_r)
+    if n <= chunk_in:
+        return run(signal)
+
+    halo_out = halo_in // in_r * out_r
+    chunk_out = chunk_in // in_r * out_r
+    slice_len = chunk_in + 2 * halo_in
+    padded = np.zeros(halo_in + n + chunk_in + halo_in, np.float32)
+    padded[halo_in:halo_in + n] = signal
+
+    out = np.empty(nout, np.float32)
+    start = 0  # global input sample at which the kept range begins
+    while start < n:
+        # padded[start:start + slice_len] is the global range
+        # [start - halo_in, start + chunk_in + halo_in)
+        local = run(padded[start:start + slice_len])
+        o0 = start // in_r * out_r
+        keep = min(chunk_out, nout - o0)
+        out[o0:o0 + keep] = local[halo_out:halo_out + keep]
+        start += chunk_in
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def arbitrary_resample_matrix(num_samples_in, rate, sample_points,
                               filter_cutoff, num_zeros):

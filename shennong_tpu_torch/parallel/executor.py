@@ -1,17 +1,26 @@
-"""Pipeline pass 1 over a whole utterance collection, on one device.
+"""Batched extraction over whole utterance collections, on one device.
 
-Counterpart of :class:`shennong_tpu.parallel.executor.FusedPipelineExecutor`
-(without a mesh): utterances are planned into padded length-sorted
-batches, decoded ahead on host threads, uploaded as int16 from pinned
-memory, and each batch runs :func:`shennong_tpu_torch.parallel.fused.pass_one_program`.
-Up to ``depth`` batches are in flight: a batch's outputs are copied to
-pinned host memory behind a CUDA event, and the host only waits on
-that event when it drains the batch, ``depth`` dispatches later.
+Counterpart of :mod:`shennong_tpu.parallel.executor` (without a mesh).
+Utterances are planned into padded length-sorted batches, decoded ahead
+on host threads and uploaded as int16 from pinned memory
+(:mod:`shennong_tpu_torch.parallel.stream`).
 
-The host spans ``pass1.dispatch`` (enqueuing one batch) and
-``pass1.wait`` (blocking on a batch's outputs) are profiler
-annotations (:func:`torch.profiler.record_function`), which cost
-nothing measurable when no profiler runs.
+- :class:`FusedPipelineExecutor` runs the pipeline's pass 1 as one
+  program per batch
+  (:func:`shennong_tpu_torch.parallel.fused.pass_one_program`).
+  Up to ``depth`` batches are in flight: a batch's outputs are copied
+  to pinned host memory behind a CUDA event, and the host only waits
+  on that event when it drains the batch, ``depth`` dispatches later.
+- :class:`BatchExecutor` runs one frame processor per sweep (the
+  stage-wise pass 1, and ``process_all``), sending hour-scale
+  utterances through the processor's chunked extraction.
+
+The host spans ``pass1.dispatch``/``pass1.wait`` (fused) and
+``batch.dispatch``/``batch.wait`` (stage-wise) mark enqueuing a batch
+and blocking on its outputs, ``batch.chunked`` the whole chunked
+extraction of one hour-scale utterance; they are profiler annotations
+(:func:`torch.profiler.record_function`), which cost nothing
+measurable when no profiler runs.
 """
 
 import collections
@@ -24,6 +33,8 @@ from shennong_tpu.features import Features
 from shennong_tpu.features_collection import FeaturesCollection
 from shennong_tpu.audio import Audio
 from shennong_tpu_torch.ops import pitch as pitch_ops
+from shennong_tpu_torch.ops import plp as plp_ops
+from shennong_tpu_torch.ops import spectral
 from shennong_tpu_torch.ops.framing import num_frames
 from shennong_tpu_torch.parallel import stream
 from shennong_tpu_torch.parallel.fused import pass_one_program
@@ -38,6 +49,8 @@ class FusedPipelineExecutor:
     feat_proc : MfccProcessor, FilterbankProcessor, PlpProcessor or
         SpectrogramProcessor
         The features processor.
+    warps : dict, optional
+        VTLN warp of each utterance by name (mel-based features).
     energy_proc, vad_proc : optional
         An EnergyProcessor and a VadPostProcessor: enable the VAD
         output (used to weight the CMVN statistics).
@@ -56,10 +69,11 @@ class FusedPipelineExecutor:
         and none is given.
     """
 
-    def __init__(self, feat_proc, energy_proc=None, vad_proc=None,
-                 pitch_proc=None, pitch_post=None, *, device,
-                 batch_size=64, depth=2, generator=None):
+    def __init__(self, feat_proc, warps=None, energy_proc=None,
+                 vad_proc=None, pitch_proc=None, pitch_post=None, *,
+                 device, batch_size=64, depth=2, generator=None):
         self.feat_proc = feat_proc
+        self.warps = warps
         self.energy_proc = energy_proc
         self.vad_proc = vad_proc
         self.pitch_proc = pitch_proc
@@ -116,16 +130,14 @@ class FusedPipelineExecutor:
         _check_sample_rates(utterances, self.feat_proc)
         if self.pitch_post is not None:
             self.pitch_post._validate_flags()
-        for utt in utterances:
-            _check_not_chunked(utt, self.feat_proc)
-            if self.pitch_proc is not None:
-                _check_not_chunked(utt, self.pitch_proc)
 
         static = self._static_opts()
         generator = self._generator(static)
         frame_opts = static['feat_opts'].frame
-        mel_weights, equal_loudness = _mel_inputs(
-            self.feat_proc, self.device)
+        # without warps every batch shares one mel bank, uploaded once
+        shared_mel = (None if self.warps is not None
+                      else _mel_inputs(self.feat_proc, None, 0, None,
+                                       self.device))
         cuda = self.device.type == 'cuda'
 
         features = FeaturesCollection()
@@ -146,6 +158,12 @@ class FusedPipelineExecutor:
             dev_signals = signals.to(self.device, non_blocking=True)
             dev_nsamples = torch.from_numpy(nsamples).to(
                 self.device, non_blocking=True)
+            if shared_mel is not None:
+                mel_weights, equal_loudness = shared_mel
+            else:
+                mel_weights, equal_loudness = _mel_inputs(
+                    self.feat_proc, names, signals.shape[0], self.warps,
+                    self.device)
             out = pass_one_program(
                 dev_signals, dev_nsamples, mel_weights, equal_loudness,
                 device=self.device, generator=generator, **kwargs)
@@ -181,7 +199,7 @@ class FusedPipelineExecutor:
                 utt_features = Features(
                     np.ascontiguousarray(feats[row, :nframes]),
                     self.feat_proc.times(nframes),
-                    properties=self.feat_proc.get_properties())
+                    properties=_properties(self.feat_proc, self.warps, name))
                 utt_vad = (np.ascontiguousarray(vad[row, :nframes])
                            if vad is not None else None)
                 utt_pitch = None
@@ -220,16 +238,46 @@ class _RawProps:
     properties: dict
 
 
-def _mel_inputs(proc, device):
-    """(mel_weights, equal_loudness) of the features processor on
-    ``device``: the mel bank of the mel-based processors, and the
-    equal-loudness weights of PLP, else None."""
+def _mel_fanout(proc, names, rows, warps):
+    """(mel_weights, equal_loudness-or-None), numpy, with per-row VTLN
+    warps.
+
+    ``warps`` is a name -> warp dict or None (no warping). Padding rows
+    reuse the last utterance's warp; a batch sharing one warp value
+    collapses to a single unbatched matrix.
+    """
+    want_eql = proc.name == 'plp'
+    if warps is None:
+        return (proc.mel_weights(1.0),
+                proc.equal_loudness(1.0) if want_eql else None)
+    per_row = [warps[name] for name in names]
+    per_row += [per_row[-1]] * (rows - len(per_row))
+    if len(set(per_row)) == 1:
+        return (proc.mel_weights(per_row[0]),
+                proc.equal_loudness(per_row[0]) if want_eql else None)
+    mel = np.stack([proc.mel_weights(w) for w in per_row])
+    eql = (np.stack([proc.equal_loudness(w) for w in per_row])
+           if want_eql else None)
+    return mel, eql
+
+
+def _mel_inputs(proc, names, rows, warps, device):
+    """(mel_weights, equal_loudness) of one batch on ``device``: the mel
+    bank of the mel-based processors and the equal-loudness weights of
+    PLP (:func:`_mel_fanout`), else None."""
     if not hasattr(proc, 'mel_weights'):  # spectrogram
         return None, None
-    mel = torch.as_tensor(proc.mel_weights(1.0), device=device)
-    if proc.name != 'plp':
-        return mel, None
-    return mel, torch.as_tensor(proc.equal_loudness(1.0), device=device)
+    mel, eql = _mel_fanout(proc, names, rows, warps)
+    return (torch.as_tensor(mel, device=device),
+            None if eql is None else torch.as_tensor(eql, device=device))
+
+
+def _properties(proc, warps, name):
+    """The properties of one utterance's features, with its VTLN warp
+    when the processor is mel-based and warps are given."""
+    if warps is not None and hasattr(proc, 'mel_weights'):
+        return proc.get_properties(vtln_warp=warps[name])
+    return proc.get_properties()
 
 
 def _check_sample_rates(utterances, proc):
@@ -242,11 +290,148 @@ def _check_sample_rates(utterances, proc):
                 '{} != {}'.format(proc.sample_rate, rate))
 
 
-def _check_not_chunked(utt, proc):
-    """Hour-scale utterances need chunked extraction, not yet ported."""
-    limit = proc.AUTO_CHUNK_FRAMES
-    frames = proc.output_frames(int(utt.duration * float(proc.sample_rate)))
-    if limit and frames > limit:
-        raise NotImplementedError(
-            f'utterance {utt.name} gives {frames} frames, more than '
-            f'{limit}: chunked extraction is not yet ported')
+class BatchExecutor:
+    """Runs a frame processor over utterance collections in padded
+    batches, one batch at a time, on one device.
+
+    Counterpart of :class:`shennong_tpu.parallel.executor.BatchExecutor`.
+
+    Parameters
+    ----------
+    processor :
+        A frame processor: MfccProcessor, FilterbankProcessor,
+        SpectrogramProcessor, PlpProcessor, EnergyProcessor or
+        KaldiPitchProcessor.
+    batch_size : int, optional
+        Utterances per batch, default 16.
+    device : str or torch.device
+        Where the batches run.
+    generator : torch.Generator, optional
+        Source of the dither, on ``device``: every batch, and every
+        chunk of an hour-scale utterance, draws from it in turn. A
+        fresh, randomly seeded one is made when the dither is on and
+        none is given.
+    """
+
+    def __init__(self, processor, batch_size=16, *, device, generator=None):
+        self.processor = processor
+        self.batch_size = int(batch_size)
+        self.device = torch.device(device)
+        self.generator = generator
+
+    def process_all(self, utterances, vtln_warp=None, signal_cache=None):
+        """Extract features for every utterance.
+
+        ``vtln_warp`` optionally maps utterance names to warp factors
+        (mel-based processors only). ``signal_cache`` optionally
+        replays already-uploaded signal batches
+        (:class:`shennong_tpu_torch.parallel.stream.SignalCache`).
+        Utterances of more than the processor's ``AUTO_CHUNK_FRAMES``
+        frames go through its ``process_chunked``. Returns a
+        FeaturesCollection keyed in streaming order.
+        """
+        proc = self.processor
+        name = proc.name
+        if vtln_warp is not None and not hasattr(proc, 'mel_weights'):
+            raise ValueError(
+                f'processor {name} does not accept VTLN warps')
+
+        # a generator would be exhausted by the rate check
+        utterances = list(utterances)
+        _check_sample_rates(utterances, proc)
+        random = {}
+        if name != 'pitch':
+            generator = self.generator
+            if generator is None and proc.dither != 0:
+                generator = fresh_generator(self.device)
+            random['generator'] = generator
+
+        collection = FeaturesCollection()
+        # hour-scale utterances would force one giant padded batch:
+        # they take chunked extraction, and only the rest is batched
+        limit = proc.AUTO_CHUNK_FRAMES
+        if limit:
+            regular = []
+            for utt in utterances:
+                frames = proc.output_frames(
+                    int(utt.duration * float(proc.sample_rate)))
+                if frames > limit:
+                    kwargs = dict(random)
+                    if vtln_warp is not None:
+                        kwargs['vtln_warp'] = vtln_warp[utt.name]
+                    with torch.profiler.record_function('batch.chunked'):
+                        collection[utt.name] = proc.process_chunked(
+                            utt.load_audio(), device=self.device, **kwargs)
+                else:
+                    regular.append(utt)
+            utterances = regular
+        if not utterances:
+            return collection
+
+        source = stream.stream_source(
+            signal_cache, utterances, self.batch_size,
+            pin_memory=self.device.type == 'cuda')
+        for names, signals, nsamples, _ in source:
+            with torch.profiler.record_function('batch.dispatch'):
+                out = self._run_batch(
+                    names, signals, nsamples, vtln_warp, **random)
+            with torch.profiler.record_function('batch.wait'):
+                feats = out.cpu().numpy()
+            for row, utt_name in enumerate(names):
+                nframes = proc.output_frames(int(nsamples[row]))
+                data = feats[row, :nframes]
+                if name == 'energy':
+                    data = data.astype(np.float64)[:, None]
+                else:
+                    # a copy: a view would keep the whole padded batch
+                    # alive as long as one of its utterances
+                    data = np.ascontiguousarray(data)
+                collection[utt_name] = Features(
+                    data, proc.times(data.shape[0]),
+                    properties=_properties(proc, vtln_warp, utt_name))
+        return collection
+
+    def _run_batch(self, names, signals, nsamples, vtln_warp,
+                   generator=None):
+        """Enqueue one batch; returns its [B, F(, D)] output on the
+        device."""
+        proc = self.processor
+        name = proc.name
+        signals = signals.to(self.device, non_blocking=True).to(
+            torch.float32)
+        nsamples_dev = torch.from_numpy(nsamples).to(
+            self.device, non_blocking=True)
+
+        if name == 'pitch':
+            opts = proc.options()
+            return pitch_ops.compute_pitch(
+                signals, nsamples_dev, opts,
+                pitch_ops.num_pitch_frames(signals.shape[1], opts))
+
+        nframes_max = num_frames(signals.shape[1], proc.frame_options())
+        if name == 'energy':
+            return spectral.energy_batch(
+                signals, nsamples_dev, proc.options(), nframes_max,
+                compression=proc.compression, generator=generator)
+        if name == 'spectrogram':
+            return spectral.spectrogram_batch(
+                signals, nsamples_dev, proc.options(), nframes_max,
+                generator=generator)
+
+        # mel-based processors, with optional per-utterance warps
+        mel_weights, eql = _mel_inputs(
+            proc, names, signals.shape[0], vtln_warp, self.device)
+        if name == 'plp':
+            return plp_ops.plp_batch(
+                signals, nsamples_dev, mel_weights, eql, proc.options(),
+                nframes_max, generator=generator)
+        if name == 'mfcc':
+            return spectral.mfcc_batch(
+                signals, nsamples_dev, mel_weights, proc.options(),
+                nframes_max, generator=generator)
+        if name == 'filterbank':
+            return spectral.fbank_batch(
+                signals, nsamples_dev, mel_weights, proc.options(),
+                nframes_max, generator=generator)
+        raise ValueError(
+            f'processor {name} does not support batched execution')

@@ -1,16 +1,18 @@
 """Streaming host data plane: bounded look-ahead batch decoding.
 
-The part of :mod:`shennong_tpu.parallel.stream` that the fused
-executor needs: utterances are planned into padded batches from their
-header metadata alone (sorted by length, so batches waste little
-padding), and a small thread pool decodes at most ``depth`` batches
-ahead of the consumer. Mono PCM16 WAV batches decode with the native
-loader straight into an int16 buffer, pinned when it feeds a CUDA
-device, so the host-to-device copy is asynchronous and moves half the
-bytes of float32.
+Counterpart of :mod:`shennong_tpu.parallel.stream`: utterances are
+planned into padded batches from their header metadata alone (sorted
+by length, so batches waste little padding), and a small thread pool
+decodes at most ``depth`` batches ahead of the consumer. Mono PCM16 WAV
+batches decode with the native loader straight into an int16 buffer,
+pinned when it feeds a CUDA device, so the host-to-device copy is
+asynchronous and moves half the bytes of float32. A
+:class:`SignalCache` keeps a corpus's uploaded batches on the device
+and replays them to later sweeps over the same utterances.
 
 Batches are ``(names, signals [B, T], nsamples [B] int32, nvalid)``
-with ``signals`` an int16 or float32 CPU tensor.
+with ``signals`` an int16 tensor: on the CPU when decoded, on the
+cache's device when replayed.
 """
 
 import concurrent.futures
@@ -122,3 +124,78 @@ def stream_batches(utterances, batch_size, pin_memory, depth=2):
                     pool.submit(decode_batch, plans[nextp], pin_memory))
                 nextp += 1
             yield batch
+
+
+def stream_source(signal_cache, utterances, batch_size, pin_memory,
+                  depth=2):
+    """The batch stream of a corpus sweep: the cache's when one is
+    given, plain host streaming otherwise."""
+    if signal_cache is not None:
+        return signal_cache.stream(utterances, batch_size, depth=depth)
+    return stream_batches(utterances, batch_size, pin_memory, depth=depth)
+
+
+class SignalCache:
+    """Device-resident cache of a corpus's uploaded signal batches.
+
+    Counterpart of :class:`shennong_tpu.parallel.stream.SignalCache`.
+    The stage-wise pipeline sweeps the same audio once per stage
+    (features, energy, pitch): the first :meth:`stream` call of a set
+    of utterances and a batch size uploads its int16 batches to
+    ``device`` and keeps them, and later calls replay them, with no
+    decode and no host-to-device copy. Retention is capped at
+    ``max_bytes`` of device memory over all entries; a sweep past the
+    remaining budget streams normally every time. The cache is an
+    optimisation and never changes what a sweep yields.
+    """
+
+    def __init__(self, max_bytes=1 << 30, *, device):
+        self._entries = {}
+        self._oversize = set()
+        self._max_bytes = int(max_bytes)
+        self._bytes = 0
+        self.device = torch.device(device)
+
+    @staticmethod
+    def _key(utterances, batch_size):
+        # names alone would collide for segments of one corpus with
+        # other bounds
+        return (tuple(sorted(
+            (u.name, u.audio_file, u.tstart or 0.0, u.tstop or 0.0)
+            for u in utterances)), int(batch_size))
+
+    def stream(self, utterances, batch_size, depth=2):
+        """Yield padded batches, populating or replaying the cache: the
+        contract of :func:`stream_batches`, with ``signals`` on the
+        cache's device."""
+        utterances = list(utterances)
+        key = self._key(utterances, batch_size)
+        cached = self._entries.get(key)
+        if cached is not None:
+            yield from cached
+            return
+        pin_memory = self.device.type == 'cuda'
+        if key in self._oversize:
+            yield from stream_batches(
+                utterances, batch_size, pin_memory, depth=depth)
+            return
+
+        entries, store = [], True
+        for names, signals, nsamples, nvalid in stream_batches(
+                utterances, batch_size, pin_memory, depth=depth):
+            dev = signals.to(self.device, non_blocking=True)
+            batch = (list(names), dev, nsamples.copy(), nvalid)
+            nbytes = dev.numel() * dev.element_size()
+            if store and self._bytes + nbytes > self._max_bytes:
+                store = False
+                for _, old, _, _ in entries:
+                    self._bytes -= old.numel() * old.element_size()
+                entries = []
+            elif store:
+                self._bytes += nbytes
+                entries.append(batch)
+            yield batch
+        if store:
+            self._entries[key] = entries
+        else:
+            self._oversize.add(key)

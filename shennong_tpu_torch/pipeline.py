@@ -3,16 +3,30 @@
 Counterpart of :mod:`shennong_tpu.pipeline` for the configurations
 ported so far: spectrogram, filterbank, MFCC or PLP (with or without
 RASTA) features with optional Kaldi pitch, CMVN (with the energy VAD)
-and deltas. Bottleneck features, CREPE pitch and VTLN raise
-NotImplementedError.
+and deltas, on utterances of any length, with optional precomputed
+VTLN warps, over corpora of one or several sample rates. Bottleneck
+features, CREPE pitch and a ``vtln`` section raise NotImplementedError.
 
-:func:`extract_features` runs in two passes. Pass 1 is one fused
-program per padded utterance batch on the given device
-(:class:`shennong_tpu_torch.parallel.executor.FusedPipelineExecutor`):
-the features, the energy VAD and the post-processed pitch. Pass 2
-runs on the host as soon as a CMVN group (a speaker, or one utterance)
-has landed: CMVN statistics, their application, deltas and the pitch
-concatenation. A pass-2 failure stops pass 1 at once.
+:func:`extract_features` runs in two passes and picks pass 1 up front,
+from the sample rates and the frame counts, as the reference does:
+
+- **fused** (one sample rate, no hour-scale utterance): one program per
+  padded utterance batch on the device
+  (:class:`shennong_tpu_torch.parallel.executor.FusedPipelineExecutor`):
+  the features, the energy VAD and the post-processed pitch. Pass 2
+  runs on the host as soon as a CMVN group (a speaker, or one
+  utterance) has landed, and a pass-2 failure stops pass 1 at once;
+- **stage-wise** (one sample rate, an utterance past a processor's
+  ``AUTO_CHUNK_FRAMES``): one sweep of the corpus per stage through
+  :class:`shennong_tpu_torch.parallel.executor.BatchExecutor`, which
+  sends the hour-scale utterances through chunked extraction; a
+  :class:`shennong_tpu_torch.parallel.stream.SignalCache` replays the
+  uploaded batches between sweeps;
+- **per utterance** (several sample rates): each utterance through its
+  own processors, built at its sample rate.
+
+Pass 2 (CMVN statistics and their application, deltas, the pitch
+concatenation) is the same on every path.
 """
 
 import os
@@ -26,8 +40,11 @@ from shennong_tpu.features_collection import FeaturesCollection
 from shennong_tpu.logger import get_logger
 from shennong_tpu_torch.ops.postops import (
     accumulate_cmvn_stats, compute_deltas_host)
-from shennong_tpu_torch.parallel.executor import FusedPipelineExecutor
+from shennong_tpu_torch.parallel.executor import (
+    BatchExecutor, FusedPipelineExecutor)
+from shennong_tpu_torch.parallel.stream import SignalCache
 from shennong_tpu_torch.pipeline_manager import PipelineManager
+from shennong_tpu_torch.processor.base import fresh_generator
 
 
 def valid_features():
@@ -122,7 +139,7 @@ def get_default_config(
     return config
 
 
-def extract_features(configuration, utterances, *, device,
+def extract_features(configuration, utterances, warps=None, *, device,
                      generator=None, log=get_logger('pipeline', 'warning')):
     """Run a features extraction pipeline over ``utterances``.
 
@@ -133,11 +150,15 @@ def extract_features(configuration, utterances, *, device,
         see :func:`get_default_config`.
     utterances : :class:`~shennong_tpu.utterances.Utterances`
         The utterances to process.
+    warps : dict, optional
+        Precomputed VTLN warps indexed by speaker or by utterance (not
+        with spectrogram features, nor with a 'vtln' config section).
     device : str or torch.device
         Where pass 1 runs ('cuda', 'cuda:1', 'cpu', ...).
     generator : torch.Generator, optional
-        Source of the dithers and the pitch noise, on ``device``; a
-        fresh, randomly seeded one when None.
+        Source of the dithers and the pitch noise, on ``device``: every
+        stage, batch and chunk draws from it in turn. A fresh, randomly
+        seeded one when None.
     log : logging.Logger, optional
 
     Returns
@@ -145,26 +166,107 @@ def extract_features(configuration, utterances, *, device,
     features : :class:`~shennong_tpu.features_collection.FeaturesCollection`
     """
     config = init_config(configuration, log=log)
-    if 'vtln' in config:
-        raise NotImplementedError('VTLN is not yet ported')
     log.info(
         'detected format for utterances index is: %s',
         utterances.format(type=str))
+    if warps:
+        warps = _init_warps(warps, config, utterances, log)
+    if 'vtln' in config:
+        raise NotImplementedError('VTLN is not yet ported')
+    if generator is None:
+        generator = fresh_generator(device)
 
     manager = PipelineManager(config, utterances, log=log)
+    if warps:
+        manager.warps = warps
     rates = set(
         meta.sample_rate for meta in manager.audio_metadata.values())
-    if len(rates) != 1:
-        raise NotImplementedError(
-            'corpora mixing sample rates are not yet supported: '
-            + ', '.join(f'{rate}Hz' for rate in sorted(rates)))
-
     utterances = list(utterances)
+
+    if len(rates) != 1:
+        log.debug('per-utterance pass 1 over %d sample rates', len(rates))
+        triplets = [
+            _extract_pass_one(utt, manager, device, generator, log)
+            for utt in utterances]
+    elif _fits_fused(manager, utterances):
+        return _fused_extract(manager, utterances, device, generator, log)
+    else:
+        triplets = _stagewise_pass_one(
+            manager, utterances, device, generator, log)
+    results = _pass_two(manager, triplets, log)
+    return FeaturesCollection(
+        {utt.name: results[utt.name] for utt in utterances})
+
+
+def _init_warps(warps, config, utterances, log):
+    """The warps by utterance name, from warps by utterance or by
+    speaker."""
+    features = [k for k in config.keys() if k in valid_features()][0]
+    if features in ('spectrogram', 'bottleneck'):
+        raise ValueError(f'{features} features do not support VTLN')
+
+    if 'vtln' in config:
+        raise ValueError(
+            'warps are given but "vtln" processor already defined '
+            'in the configuration')
+
+    if warps.keys() == utterances.by_name().keys():
+        log.info('VTLN warps are defined by utterance')
+    elif (utterances.has_speakers()
+          and warps.keys() == utterances.by_speaker().keys()):
+        log.info('VTLN warps are defined by speaker')
+        warps = {utt.name: warps[utt.speaker] for utt in utterances}
+    else:
+        raise ValueError(
+            'warps do not match utterances, either by speaker or by '
+            'utterance')
+
+    return {name: float(warp) for name, warp in warps.items()}
+
+
+def _fits_fused(manager, utterances):
+    """Whether no utterance is past the frame limit of a fused
+    processor: the pitch tracker has its own frame grid and limit, so
+    every fused processor is checked, not just the features one."""
+    first = utterances[0]
+    procs = [manager.make('features', first)]
+    if 'pitch' in manager.config:
+        procs.append(manager.make('pitch', first))
+    for proc in procs:
+        limit = proc.AUTO_CHUNK_FRAMES
+        if limit and any(
+                proc.output_frames(
+                    int(utt.duration * float(proc.sample_rate))) > limit
+                for utt in utterances):
+            return False
+    return True
+
+
+def _with_audio_properties(manager, utterance, features):
+    """Record the utterance's speaker and audio source in the
+    properties of its features."""
+    if utterance.speaker:
+        features.properties['speaker'] = utterance.speaker
+    features.properties['audio'] = {
+        'file': os.path.abspath(utterance.audio_file),
+        'sample_rate': manager.audio_metadata[
+            utterance.audio_file].sample_rate}
+    if utterance.tstart is not None:
+        features.properties['audio']['tstart'] = utterance.tstart
+        features.properties['audio']['tstop'] = utterance.tstop
+    features.properties['audio']['duration'] = utterance.duration
+
+
+def _fused_extract(manager, utterances, device, generator, log):
+    """The fused pass 1, with each CMVN group's pass 2 as soon as the
+    group has landed."""
+    config = manager.config
     first = utterances[0]
     with_vad = 'cmvn' in config and config['cmvn']['with_vad']
     with_pitch = 'pitch' in config
     executor = FusedPipelineExecutor(
         manager.make('features', first),
+        warps=dict(manager.warps) if manager.warps else None,
         energy_proc=manager.make('energy', first) if with_vad else None,
         vad_proc=manager.make('vad') if with_vad else None,
         pitch_proc=manager.make('pitch', first) if with_pitch else None,
@@ -188,16 +290,7 @@ def extract_features(configuration, utterances, *, device,
         utterance = by_name[name]
         if with_cmvn:
             stats[name] = accumulate_cmvn_stats(features.data, weights=vad)
-        if utterance.speaker:
-            features.properties['speaker'] = utterance.speaker
-        features.properties['audio'] = {
-            'file': os.path.abspath(utterance.audio_file),
-            'sample_rate': manager.audio_metadata[
-                utterance.audio_file].sample_rate}
-        if utterance.tstart is not None:
-            features.properties['audio']['tstart'] = utterance.tstart
-            features.properties['audio']['tstop'] = utterance.tstop
-        features.properties['audio']['duration'] = utterance.duration
+        _with_audio_properties(manager, utterance, features)
         landed[name] = (utterance, features, pitch)
 
         key = group_of[name]
@@ -217,6 +310,97 @@ def extract_features(configuration, utterances, *, device,
     executor.run(utterances, on_utterance=on_utterance)
     return FeaturesCollection(
         {utt.name: results[utt.name] for utt in utterances})
+
+
+def _stagewise_pass_one(manager, utterances, device, generator, log):
+    """Pass 1 as one :class:`BatchExecutor` sweep per stage, the
+    hour-scale utterances in chunks. Returns the (utterance, features,
+    pitch-or-None) triplets, the CMVN statistics accumulated."""
+    config = manager.config
+    first = utterances[0]
+    with_vad = 'cmvn' in config and config['cmvn']['with_vad']
+    with_pitch = 'pitch' in config
+    # the sweeps stream the same audio: the first uploads it, the
+    # others replay it
+    cache = SignalCache(device=device) if with_vad or with_pitch else None
+
+    log.debug('stage-wise pass 1: %s', manager.features)
+    feats = BatchExecutor(
+        manager.make('features', first), device=device,
+        generator=generator).process_all(
+            utterances,
+            vtln_warp=dict(manager.warps) if manager.warps else None,
+            signal_cache=cache)
+
+    vads = None
+    if with_vad:
+        log.debug('stage-wise pass 1: energy + vad')
+        energies = BatchExecutor(
+            manager.make('energy', first), device=device,
+            generator=generator).process_all(
+                utterances, signal_cache=cache)
+        vads = {
+            name: vad.data.reshape(-1) for name, vad in
+            manager.make('vad').process_all(
+                energies, device=device).items()}
+
+    pitches = None
+    if with_pitch:
+        log.debug('stage-wise pass 1: pitch')
+        raw = BatchExecutor(
+            manager.make('pitch', first), device=device).process_all(
+                utterances, signal_cache=cache)
+        pitches = manager.make('pitch_post').process_collection(
+            raw, device=device, generator=generator)
+
+    triplets = []
+    for utterance in utterances:
+        features = feats[utterance.name]
+        if 'cmvn' in config:
+            manager.accumulate_cmvn(
+                utterance, features,
+                weights=vads[utterance.name] if vads else None)
+        _with_audio_properties(manager, utterance, features)
+        triplets.append((
+            utterance, features,
+            pitches[utterance.name] if pitches else None))
+    return triplets
+
+
+def _extract_pass_one(utterance, manager, device, generator, log):
+    """Pass 1 of one utterance through processors built at its sample
+    rate; its CMVN statistics are accumulated."""
+    log.debug('%s: load audio', utterance.audio_file)
+    audio = manager.get_audio(utterance)
+    random = {'device': device, 'generator': generator}
+
+    log.debug('%s: extract %s', utterance.name, manager.features)
+    proc = manager.make('features', utterance)
+    if manager.warps:
+        features = proc.process(
+            audio, vtln_warp=manager.get_warp(utterance), **random)
+    else:
+        features = proc.process(audio, **random)
+
+    if 'cmvn' in manager.config:
+        log.debug('%s: accumulate cmvn', utterance.name)
+        vad = None
+        if manager.config['cmvn']['with_vad']:
+            energy = manager.make('energy', utterance).process(
+                audio, **random)
+            vad = manager.make('vad').process(energy, device=device)
+            vad = vad.data.reshape((vad.shape[0],))
+        manager.accumulate_cmvn(utterance, features, weights=vad)
+
+    pitch = None
+    if 'pitch' in manager.config:
+        log.debug('%s: extract kaldi pitch', utterance.name)
+        pitch = manager.make('pitch', utterance).process(
+            audio, device=device)
+        pitch = manager.make('pitch_post').process(pitch, **random)
+
+    _with_audio_properties(manager, utterance, features)
+    return utterance, features, pitch
 
 
 def _pass_two(manager, triplets, log, tolerance=2):

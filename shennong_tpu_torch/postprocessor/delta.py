@@ -11,6 +11,7 @@ import copy
 import torch
 
 from shennong_tpu.features import Features
+from shennong_tpu.features_collection import FeaturesCollection
 from shennong_tpu_torch.ops import postops
 from shennong_tpu_torch.postprocessor.base import FeaturesPostProcessor
 
@@ -84,3 +85,26 @@ class DeltaPostProcessor(FeaturesPostProcessor):
             out[0].cpu().numpy().astype(features.dtype),
             features.times,
             self.get_properties(features))
+
+    def process_all(self, features_collection, *, device):
+        """Deltas for a whole collection, on ``device``.
+
+        Utterances are grouped into padded masked batches by (frame
+        bucket, dim) (:func:`shennong_tpu_torch.ops.postops.batch_ragged`):
+        one device program per batch instead of one per utterance.
+        Returns a FeaturesCollection keyed like the input.
+        """
+        names = list(features_collection.keys())
+        arrays = [features_collection[n].data for n in names]
+        out = FeaturesCollection()
+        for chunk, stacked, nframes in postops.batch_ragged(arrays):
+            deltas = postops.compute_deltas(
+                torch.as_tensor(stacked, device=device),
+                torch.as_tensor(nframes, device=device),
+                order=self._order, window=self._window).cpu().numpy()
+            for row, index in enumerate(chunk):
+                feats = features_collection[names[index]]
+                out[names[index]] = Features(
+                    deltas[row, :feats.nframes].astype(feats.dtype),
+                    feats.times, self.get_properties(feats))
+        return out

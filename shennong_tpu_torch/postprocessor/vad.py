@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from shennong_tpu.features import Features
+from shennong_tpu.features_collection import FeaturesCollection
 from shennong_tpu_torch.ops import postops
 from shennong_tpu_torch.postprocessor.base import FeaturesPostProcessor
 
@@ -117,3 +118,31 @@ class VadPostProcessor(FeaturesPostProcessor):
         return Features(
             vad[0].cpu().numpy().astype(np.uint8)[:, None],
             features.times, properties=self.get_properties(features))
+
+    def process_all(self, features_collection, *, device):
+        """Voicing decisions for a whole collection, on ``device``.
+
+        Utterances are grouped into padded masked batches
+        (:func:`shennong_tpu_torch.ops.postops.batch_ragged`): one
+        device program per batch instead of one per utterance. Returns
+        a FeaturesCollection keyed like the input.
+        """
+        names = list(features_collection.keys())
+        arrays = [features_collection[n].data[:, :1] for n in names]
+        out = FeaturesCollection()
+        for chunk, stacked, nframes in postops.batch_ragged(arrays):
+            vad = postops.compute_vad_energy(
+                torch.as_tensor(stacked[:, :, 0], device=device),
+                torch.as_tensor(nframes, device=device),
+                energy_threshold=self._energy_threshold,
+                energy_mean_scale=self._energy_mean_scale,
+                frames_context=self._frames_context,
+                proportion_threshold=self._proportion_threshold)
+            vad = vad.cpu().numpy()
+            for row, index in enumerate(chunk):
+                features = features_collection[names[index]]
+                out[names[index]] = Features(
+                    vad[row, :features.nframes].astype(np.uint8)[:, None],
+                    features.times,
+                    properties=self.get_properties(features))
+        return out

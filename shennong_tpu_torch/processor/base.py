@@ -3,17 +3,22 @@
 Counterpart of :mod:`shennong_tpu.processor.base` (FeaturesProcessor,
 FramesProcessor, MelFeaturesProcessor), with the same parameters and
 properties. ``process`` handles one utterance as a batch of one on an
-explicit ``device``; random stages draw from a :class:`torch.Generator`
-(a fresh, randomly seeded one when the caller gives none).
+explicit ``device`` (hour-scale ones in chunks, ``process_chunked``);
+``process_all`` runs whole utterance collections. Random stages draw
+from a :class:`torch.Generator` (a fresh, randomly seeded one when the
+caller gives none).
 """
 
 import abc
+import copy
 
 import numpy as np
 import torch
 
-from shennong_tpu.features import Features
+from shennong_tpu.audio import Audio
 from shennong_tpu.base import BaseProcessor
+from shennong_tpu.features import Features
+from shennong_tpu.features_collection import FeaturesCollection
 from shennong_tpu_torch.ops.framing import (
     FrameOptions, WINDOW_TYPES, num_frames)
 from shennong_tpu_torch.ops.spectral import MelOpts
@@ -53,12 +58,40 @@ class FeaturesProcessor(BaseProcessor, metaclass=abc.ABCMeta):
     def process(self, signal, *, device):
         """Compute features from an input signal on ``device``."""
 
+    def process_all(self, utterances, *, device, generator=None, **kwargs):
+        """Compute features for a whole utterance collection, one
+        utterance at a time, on ``device``.
+
+        ``kwargs`` values must be dicts indexed by utterance name and
+        are forwarded per utterance to :func:`process`, with
+        ``generator`` when one is given. Returns a
+        :class:`FeaturesCollection` keyed like ``utterances``.
+        """
+        _check_per_utterance(utterances, kwargs)
+        random = {} if generator is None else {'generator': generator}
+        collection = FeaturesCollection()
+        for utt in utterances:
+            collection[utt.name] = self.process(
+                utt.load_audio(), device=device, **random,
+                **{k: v[utt.name] for k, v in kwargs.items()})
+        return collection
+
+
+def _check_per_utterance(utterances, kwargs):
+    """Each per-utterance argument is a dict keyed like ``utterances``."""
+    for name, value in kwargs.items():
+        if not isinstance(value, dict):
+            raise ValueError(f'argument "{name}" is not a dict')
+        if value.keys() != utterances.by_name().keys():
+            raise ValueError(
+                f'utterances and "{name}" have different names')
+
 
 class FramesProcessor(FeaturesProcessor, metaclass=abc.ABCMeta):
     """Base class for frame-based processors (Kaldi framing options)."""
 
-    # frame count above which a signal needs chunked extraction, which
-    # is not yet ported: :func:`process` refuses such signals
+    # frame count above which :func:`process` transparently switches
+    # to chunked extraction; None disables the automatic routing
     AUTO_CHUNK_FRAMES = 60000
 
     def __init__(self, sample_rate=16000, frame_shift=0.01,
@@ -191,6 +224,113 @@ class FramesProcessor(FeaturesProcessor, metaclass=abc.ABCMeta):
     def snip_edges(self, value):
         self._snip_edges = bool(value)
 
+    def process_all(self, utterances, *, device, generator=None, **kwargs):
+        """Batched extraction over a whole utterance collection.
+
+        Utterances run in padded length-sorted batches through
+        :class:`shennong_tpu_torch.parallel.executor.BatchExecutor` on
+        ``device``, the hour-scale ones through :func:`process_chunked`.
+        ``kwargs`` may hold a ``vtln_warp`` dict (mel-based processors);
+        other per-utterance arguments take the per-utterance loop.
+        ``generator`` is the source of the dither, on ``device``.
+        """
+        _check_per_utterance(utterances, kwargs)
+        if set(kwargs) <= {'vtln_warp'}:
+            from shennong_tpu_torch.parallel.executor import BatchExecutor
+            return BatchExecutor(
+                self, device=device, generator=generator).process_all(
+                    utterances, vtln_warp=kwargs.get('vtln_warp'))
+        return super().process_all(
+            utterances, device=device, generator=generator, **kwargs)
+
+    def process_chunked(self, signal, chunk_frames=20000, halo_frames=256,
+                        *, device, generator=None, **kwargs):
+        """Extract features from a long signal in frame-aligned chunks.
+
+        Bounds device memory for hour-scale utterances: the signal is
+        split into pieces of ``chunk_frames`` frames, each processed by
+        :func:`process` as one utterance, and the outputs concatenated.
+        Frame-local computers (spectrogram, filterbank, MFCC, energy,
+        plain PLP) give the output of :func:`process` on the whole
+        signal when ``dither`` is 0. RASTA-PLP (the one stateful
+        computer) re-enters each chunk through a left halo of
+        ``halo_frames`` dropped frames: the RASTA IIR pole (0.94)
+        decays the boundary error below 1e-6 within 256 frames. The
+        dither of every chunk draws from ``generator`` in turn (a
+        fresh, randomly seeded one when None and ``dither`` is on).
+
+        Frame placement matches Kaldi for both ``snip_edges`` settings:
+        without snipping, the signal is symmetric-padded once on the
+        host so every chunk is a plain strided slice.
+        """
+        chunk_frames = int(chunk_frames)
+        if chunk_frames < 1:
+            raise ValueError(
+                f'chunk_frames must be >= 1, it is {chunk_frames}')
+        if int(halo_frames) < 0:
+            raise ValueError(
+                f'halo_frames must be >= 0, it is {halo_frames}')
+
+        self._check_signal(signal)
+        opts = self.frame_options()
+        total = num_frames(signal.nsamples, opts)
+        if total <= chunk_frames:
+            # the regular path with automatic routing disabled, so a
+            # small AUTO_CHUNK_FRAMES cannot re-enter here
+            direct = copy.copy(self)
+            direct.AUTO_CHUNK_FRAMES = None
+            return direct.process(
+                signal, device=device, generator=generator, **kwargs)
+
+        if self._dither != 0 and generator is None:
+            generator = fresh_generator(device)
+        data = signal.astype(np.int16).data
+        shift, length = opts.window_shift, opts.window_size
+        if opts.snip_edges:
+            padded, offset = data, 0
+        else:
+            # one symmetric reflection (-1 -> 0, n -> n-1, ...) covers
+            # the half-window overhang of the edge frames
+            padded = np.pad(data, length, mode='symmetric')
+            offset = length + shift // 2 - length // 2
+
+        worker = copy.copy(self)
+        worker.snip_edges = True
+        worker.AUTO_CHUNK_FRAMES = None
+        halo = int(halo_frames) if getattr(self, 'rasta', False) else 0
+
+        pieces = []
+        start = 0
+        while start < total:
+            stop = min(start + chunk_frames, total)
+            head = max(start - halo, 0)
+            lo = offset + head * shift
+            hi = offset + (stop - 1) * shift + length
+            piece = worker.process(
+                Audio(padded[lo:hi], signal.sample_rate, validate=False),
+                device=device, generator=generator, **kwargs).data
+            pieces.append(piece[start - head:])
+            start = stop
+
+        props_kwargs = dict(kwargs)
+        if isinstance(self, MelFeaturesProcessor):
+            props_kwargs.setdefault('vtln_warp', 1.0)
+        return Features(
+            np.concatenate(pieces, axis=0), self.times(total),
+            properties=self.get_properties(**props_kwargs))
+
+    def _maybe_chunk(self, signal, *, device, generator, **kwargs):
+        """Route very long signals to chunked extraction.
+
+        Returns the chunked Features, or None when the signal is short
+        enough for the regular single-batch path.
+        """
+        limit = self.AUTO_CHUNK_FRAMES
+        if limit and self.output_frames(signal.nsamples) > limit:
+            return self.process_chunked(
+                signal, device=device, generator=generator, **kwargs)
+        return None
+
     def times(self, nframes):
         """(tstart, tstop) label for each output frame"""
         return np.vstack((
@@ -217,7 +357,7 @@ class FramesProcessor(FeaturesProcessor, metaclass=abc.ABCMeta):
             snip_edges=self._snip_edges)
 
     def _check_signal(self, signal):
-        """Validate channel count, sample rate and length of a signal."""
+        """Validate channel count and sample rate of an input signal."""
         if signal.nchannels != 1:
             raise ValueError(
                 'signal must have one dimension, but it has {}'
@@ -226,12 +366,6 @@ class FramesProcessor(FeaturesProcessor, metaclass=abc.ABCMeta):
             raise ValueError(
                 'processor and signal mismatch in sample rates: '
                 '{} != {}'.format(self.sample_rate, signal.sample_rate))
-        frames = self.output_frames(signal.nsamples)
-        if self.AUTO_CHUNK_FRAMES and frames > self.AUTO_CHUNK_FRAMES:
-            raise NotImplementedError(
-                f'the signal gives {frames} frames, more than '
-                f'{self.AUTO_CHUNK_FRAMES}: chunked extraction is not '
-                'yet ported')
 
     def _signal_batch(self, signal, device, generator=None):
         """A batch of one on ``device``.
@@ -351,6 +485,9 @@ class MelFeaturesProcessor(FramesProcessor, metaclass=abc.ABCMeta):
     def process(self, signal, vtln_warp=1.0, *, device, generator=None):
         """Compute features on ``device``, with optional VTLN warping.
 
+        Signals of more than ``AUTO_CHUNK_FRAMES`` frames go through
+        :func:`process_chunked`.
+
         Parameters
         ----------
         signal : Audio, shape = [nsamples, 1]
@@ -368,6 +505,10 @@ class MelFeaturesProcessor(FramesProcessor, metaclass=abc.ABCMeta):
         features : Features, shape = [nframes, ndims]
         """
         self._check_signal(signal)
+        chunked = self._maybe_chunk(
+            signal, device=device, generator=generator, vtln_warp=vtln_warp)
+        if chunked is not None:
+            return chunked
         data = self._compute(signal, vtln_warp, device, generator)
         return Features(
             data, self.times(data.shape[0]),

@@ -85,9 +85,14 @@ class EnergyProcessor(FramesProcessor):
         With ``raw_energy`` the pre-emphasis and window are disabled
         (baked into the static options). ``generator`` is the source of
         the dither, on ``device`` (a fresh, randomly seeded one when
-        None and ``dither`` is non-zero).
+        None and ``dither`` is non-zero). Signals of more than
+        ``AUTO_CHUNK_FRAMES`` frames go through :func:`process_chunked`.
         """
         self._check_signal(signal)
+        chunked = self._maybe_chunk(
+            signal, device=device, generator=generator)
+        if chunked is not None:
+            return chunked
         signals, nsamples, nframes, generator = self._signal_batch(
             signal, device, generator)
         if nframes == 0:

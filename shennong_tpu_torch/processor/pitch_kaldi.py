@@ -11,9 +11,11 @@ import numpy as np
 import torch
 
 from shennong_tpu.features import Features
+from shennong_tpu.features_collection import FeaturesCollection
 from shennong_tpu_torch.ops.pitch import (
-    PitchOpts, ProcessPitchOpts, compute_pitch, num_pitch_frames,
-    process_pitch)
+    PitchOpts, ProcessPitchOpts, compute_pitch, compute_pitch_long,
+    num_pitch_frames, process_pitch)
+from shennong_tpu_torch.ops.postops import batch_ragged
 from shennong_tpu_torch.processor.base import (
     FeaturesProcessor, fresh_generator)
 from shennong_tpu_torch.postprocessor.base import FeaturesPostProcessor
@@ -27,8 +29,8 @@ class KaldiPitchProcessor(FeaturesProcessor):
     estimate in Hz.
     """
 
-    # pitch frame count above which a signal needs chunked extraction,
-    # which is not yet ported: :func:`process` refuses such signals
+    # pitch frame count above which :func:`process` transparently
+    # switches to chunked extraction; None disables the routing
     AUTO_CHUNK_FRAMES = 60000
 
     def __init__(self, sample_rate=16000, frame_shift=0.01,
@@ -227,6 +229,16 @@ class KaldiPitchProcessor(FeaturesProcessor):
         (pitch frames count on the resampled analysis grid)."""
         return num_pitch_frames(nsamples, self.options())
 
+    def process_all(self, utterances, *, device, **kwargs):
+        """Batched pitch extraction over an utterance collection, on
+        ``device``, through
+        :class:`shennong_tpu_torch.parallel.executor.BatchExecutor`
+        (per-utterance arguments take the per-utterance loop)."""
+        if not kwargs:
+            from shennong_tpu_torch.parallel.executor import BatchExecutor
+            return BatchExecutor(self, device=device).process_all(utterances)
+        return super().process_all(utterances, device=device, **kwargs)
+
     def _check_signal(self, signal):
         if signal.nchannels != 1:
             raise ValueError(
@@ -241,7 +253,9 @@ class KaldiPitchProcessor(FeaturesProcessor):
         """Extract the (NCCF, pitch) per frame of ``signal`` on
         ``device``; output is a [nframes, 2] Features.
 
-        The signal's sample rate must match the processor's.
+        The signal's sample rate must match the processor's. Signals of
+        more than ``AUTO_CHUNK_FRAMES`` pitch frames go through
+        :func:`process_chunked`.
         """
         self._check_signal(signal)
         opts = self.options()
@@ -249,9 +263,7 @@ class KaldiPitchProcessor(FeaturesProcessor):
         nframes = num_pitch_frames(nsamp, opts)
         limit = self.AUTO_CHUNK_FRAMES
         if limit and nframes > limit:
-            raise NotImplementedError(
-                f'the signal gives {nframes} pitch frames, more than '
-                f'{limit}: chunked extraction is not yet ported')
+            return self.process_chunked(signal, device=device)
 
         if nframes == 0:
             out = np.zeros((0, 2), dtype=np.float32)
@@ -263,6 +275,34 @@ class KaldiPitchProcessor(FeaturesProcessor):
                 opts, nframes)
             out = feats[0].cpu().numpy()
 
+        return Features(
+            out, self.times(out.shape[0]),
+            properties=self.get_properties())
+
+    def process_chunked(self, signal, chunk_frames=8000, halo_frames=200,
+                        *, device):
+        """Pitch of a very long signal in frame chunks, on ``device``.
+
+        Bounds device memory for hour-scale utterances: the signal is
+        resampled in exact aligned chunks, the NCCF ballast uses the
+        statistic of the whole signal, and the Viterbi lag selection
+        runs per chunk of ``chunk_frames`` frames with ``halo_frames``
+        context frames on each side (paths coalesce well inside a 2 s
+        halo; see :func:`shennong_tpu_torch.ops.pitch.compute_pitch_long`).
+        """
+        chunk_frames = int(chunk_frames)
+        if chunk_frames < 1:
+            raise ValueError(
+                f'chunk_frames must be >= 1, it is {chunk_frames}')
+        if int(halo_frames) < 0:
+            raise ValueError(
+                f'halo_frames must be >= 0, it is {halo_frames}')
+        self._check_signal(signal)
+
+        data = signal.astype(np.int16).data.astype(np.float32)
+        out = compute_pitch_long(
+            data, self.options(), chunk_frames=chunk_frames,
+            halo_frames=int(halo_frames), device=device)
         return Features(
             out, self.times(out.shape[0]),
             properties=self.get_properties())
@@ -501,6 +541,55 @@ class KaldiPitchPostProcessor(FeaturesPostProcessor):
         return Features(
             out[0].cpu().numpy(), raw_pitch.times,
             properties=self.get_properties(raw_pitch))
+
+    def process_collection(self, collection, batch_rows=16, *, device,
+                           generator=None):
+        """Post-process a whole collection of raw (NCCF, pitch) pairs
+        on ``device``.
+
+        Matrices are grouped into padded batches of similar lengths
+        (:func:`shennong_tpu_torch.ops.postops.batch_ragged`), each
+        batch one :func:`process_pitch` call. ``generator`` is the
+        source of the delta-pitch noise, on ``device`` (a fresh,
+        randomly seeded one when None and the noise is on). Returns a
+        FeaturesCollection keyed like the input.
+        """
+        self._validate_flags()
+        names = list(collection.keys())
+        arrays = []
+        for name in names:
+            feats = collection[name]
+            if feats.shape[1] != 2:
+                raise ValueError(
+                    'data shape must be (_, 2), but it is (_, {})'
+                    .format(feats.shape[1]))
+            arrays.append(feats.data)
+
+        opts = self.options()
+        with_noise = (
+            self.add_delta_pitch and self._delta_pitch_noise_stddev != 0)
+        if with_noise and generator is None:
+            generator = fresh_generator(device)
+        outputs = [None] * len(arrays)
+        for chunk, stacked, nframes in batch_ragged(
+                arrays, batch_rows=batch_rows):
+            noise = None
+            if with_noise:
+                noise = torch.randn(
+                    stacked.shape[:2], generator=generator,
+                    dtype=torch.float32, device=device)
+            out = process_pitch(
+                torch.as_tensor(stacked, device=device),
+                torch.as_tensor(nframes, device=device), opts,
+                noise=noise).cpu().numpy()
+            for row, index in enumerate(chunk):
+                outputs[index] = out[row, :arrays[index].shape[0]]
+
+        return FeaturesCollection({
+            name: Features(
+                out, collection[name].times,
+                properties=self.get_properties(collection[name]))
+            for name, out in zip(names, outputs)})
 
     def _validate_flags(self):
         if not (self.add_pov_feature or self.add_normalized_log_pitch

@@ -71,9 +71,14 @@ class SpectrogramProcessor(FramesProcessor):
         spectrograms is a no-op and is not exposed, as in the
         reference). ``generator`` is the source of the dither, on
         ``device`` (a fresh, randomly seeded one when None and
-        ``dither`` is non-zero).
+        ``dither`` is non-zero). Signals of more than
+        ``AUTO_CHUNK_FRAMES`` frames go through :func:`process_chunked`.
         """
         self._check_signal(signal)
+        chunked = self._maybe_chunk(
+            signal, device=device, generator=generator)
+        if chunked is not None:
+            return chunked
         signals, nsamples, nframes, generator = self._signal_batch(
             signal, device, generator)
         if nframes == 0:

@@ -12,7 +12,11 @@ the processors against golden_real.npz (max-abs 1e-3) and against
 their CPU runs (1e-3), the RASTA filter and sliding-window CMVN
 against their CPU runs (1e-5), and the MFCC and RASTA-PLP slices on
 the card against the same slices on the CPU (max-abs 1e-3, every
-random source at 0).
+random source at 0). The Viterbi kernels are also held at the chunk
+shape of hour-scale pitch, [8, 8400, 417]; chunked extraction against
+whole-signal extraction on the card (1e-4, RASTA-PLP 1e-3, pitch lags
+equal or proven ties); and the stage-wise path on the card against
+the CPU (1e-3).
 """
 
 import copy
@@ -37,6 +41,8 @@ from shennong_tpu_torch.processor.pitch_kaldi import (
 from shennong_tpu_torch.processor.plp import PlpProcessor
 from shennong_tpu_torch.processor.spectrogram import SpectrogramProcessor
 
+from tests.lag_ties import assert_ties
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REAL_WAV = os.path.join(REPO, 'tests', 'data', 'test.wav')
 FACTOR = 0.1 * math.log(1.005) ** 2  # the default inter-frame factor
@@ -52,6 +58,8 @@ CASES = [
     ((2, 1, 417), [1, 0]),
     ((64, 598, 417), [598] * 32 + [int(n) for n in np.random.RandomState(
         1).randint(0, 599, 32)]),
+    # a group of hour-scale pitch chunks (compute_pitch_long)
+    ((8, 8400, 417), [8400, 8400, 8400, 5000, 8400, 1, 0, 3000]),
 ]
 
 pytestmark = pytest.mark.gpu
@@ -178,4 +186,69 @@ def test_slice_matches_cpu(cuda_device, corpus, features):
         assert on_cuda[name].shape == on_cpu[name].shape
         assert on_cuda[name].shape[1] == 42
         assert np.isfinite(on_cuda[name].data).all()
+        assert np.abs(on_cuda[name].data - on_cpu[name].data).max() < 1e-3
+
+
+@pytest.fixture(scope='module')
+def two_minutes():
+    """Two minutes of voiced harmonics with a wandering F0 under a
+    syllabic envelope, and a little noise."""
+    rng = np.random.RandomState(2)
+    t = np.arange(120 * 16000) / 16000
+    phase = 2 * np.pi * np.cumsum(120 + 30 * np.sin(2 * np.pi * 0.7 * t))
+    voiced = sum((0.6 ** k) * np.sin((k + 1) * phase / 16000)
+                 for k in range(6))
+    signal = (voiced * (0.5 + 0.5 * np.sin(2 * np.pi * 3.1 * t)) ** 2
+              + 0.02 * rng.randn(t.size))
+    return Audio((signal / np.abs(signal).max() * 20000).astype(np.int16),
+                 16000)
+
+
+@pytest.mark.parametrize('name', [
+    'mfcc', 'filterbank', 'energy', 'spectrogram', 'plp', 'rastaplp'])
+def test_chunked_matches_whole(cuda_device, two_minutes, name):
+    proc = {'mfcc': MfccProcessor(dither=0),
+            'filterbank': FilterbankProcessor(dither=0),
+            'energy': EnergyProcessor(dither=0),
+            'spectrogram': SpectrogramProcessor(dither=0),
+            'plp': PlpProcessor(dither=0),
+            'rastaplp': PlpProcessor(dither=0, rasta=True)}[name]
+    chunked = proc.process_chunked(
+        two_minutes, chunk_frames=3000, device=cuda_device)
+    whole = proc.process_chunked(
+        two_minutes, chunk_frames=10 ** 9, device=cuda_device)
+    assert chunked.shape == whole.shape == (11998, proc.ndims)
+    bound = 1e-3 if name == 'rastaplp' else 1e-4
+    assert np.abs(chunked.data - whole.data).max() < bound
+
+
+def test_pitch_chunked_matches_whole(cuda_device, two_minutes):
+    proc = KaldiPitchProcessor()
+    cuda_viterbi.reset_launches()
+    chunked = proc.process_chunked(
+        two_minutes, chunk_frames=2000, halo_frames=200,
+        device=cuda_device).data
+    # 6 chunks of 2400 frames: one group of 8 rows
+    assert cuda_viterbi.LAUNCHES == {
+        'viterbi_forward': 1, 'viterbi_backtrace': 1}
+    whole = proc.process(two_minutes, device=cuda_device).data
+    assert_ties(two_minutes.data, proc.options(), chunked, whole,
+                cuda_device)
+
+
+def test_stagewise_slice_matches_cpu(cuda_device, corpus, monkeypatch):
+    """An utterance past a lowered features limit: the stage-wise path
+    and its chunked route, on the card against the CPU."""
+    monkeypatch.setattr(MfccProcessor, 'AUTO_CHUNK_FRAMES', 200)
+    config = pipeline.get_default_config(
+        'mfcc', with_pitch='kaldi', with_cmvn=True, with_delta=True)
+    config['mfcc']['dither'] = 0
+    config['pitch']['postprocessing']['delta_pitch_noise_stddev'] = 0
+    warps = {'spk1': 0.93, 'spk2': 1.06}
+    on_cuda = pipeline.extract_features(
+        copy.deepcopy(config), corpus, warps=warps, device=cuda_device)
+    on_cpu = pipeline.extract_features(
+        copy.deepcopy(config), corpus, warps=warps, device='cpu')
+    for name in on_cpu:
+        assert on_cuda[name].shape == on_cpu[name].shape
         assert np.abs(on_cuda[name].data - on_cpu[name].data).max() < 1e-3
