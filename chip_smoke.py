@@ -4,7 +4,10 @@
 
 Builds the CUDA kernels of ``shennong_tpu_torch`` from the sources in
 this checkout, holds each against its plain PyTorch version on the
-card, checks the processors against ``tests/data/golden_real.npz``
+card (the corpus batch [64, 598, 417], edge shapes, the chunk shape of
+hour-scale pitch and the 12-minute whole run [1, 71998, 417]), prints
+each kernel's cluster size, registers and spills, milliseconds, time
+per frame, bound and share of the bound, checks the processors against ``tests/data/golden_real.npz``
 and ``tests/kaldi_oracle.py``, and drives the port's paths over a
 generated corpus of 256 utterances (4 s and 6 s, 16 speakers):
 
@@ -33,6 +36,7 @@ Imports nothing of JAX.
 """
 
 import copy
+import ctypes
 import json
 import math
 import os
@@ -99,7 +103,15 @@ def probe():
 
 # ------------------------------------------------------------------ build
 
+#: the H100 SXM's published peaks (NVIDIA's data sheet): float32 outside
+#: the tensor cores, and HBM3 bandwidth
+PEAK_FLOPS_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+
+
 def build_kernels():
+    """Build csrc/viterbi.cu; returns ptxas's (registers, spill stores,
+    spill loads) by kernel instantiation, e.g. 'viterbi_forward<7>'."""
     from shennong_tpu_torch.ops import cuda_viterbi
 
     start = time.perf_counter()
@@ -107,19 +119,70 @@ def build_kernels():
     cuda_viterbi._load()
     seconds = time.perf_counter() - start
     say('build', f'{os.path.relpath(path, HERE)} in {seconds:.2f} s')
+    resources, current, spills = {}, None, (0, 0)
     for line in log.splitlines():
-        if 'registers' in line or 'spill' in line:
-            say('build', 'ptxas: ' + line.strip())
+        entry = re.search(r'(viterbi_(?:forward|backtrace))_kernelILi(\d+)E',
+                          line)
+        if entry:
+            current = f'{entry.group(1)}<{entry.group(2)}>'
+        spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                          r'loads', line)
+        if spill:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+        used = re.search(r'Used (\d+) registers', line)
+        if used and current:
+            resources[current] = (int(used.group(1)),) + spills
+            current = None
+    for name, (registers, stores, loads) in sorted(resources.items()):
+        say('build', f'ptxas {name}: {registers} registers, spill stores '
+            f'{stores} B, spill loads {loads} B')
+    return resources
 
 
 # ---------------------------------------------------------- kernel vs plain
 
-def hold_kernels(shape, bounds, rng, errors):
+def instantiation(name, shape):
+    """The kernel template instantiation, and the forward's cluster
+    size, that the wrappers launch at ``shape``."""
+    from shennong_tpu_torch.ops import cuda_viterbi
+
+    if name == 'viterbi_forward':
+        plan = cuda_viterbi.forward_plan(shape[0], shape[2], 'cuda')
+        return f"{name}<{plan['lanes_lags']}>", plan['clusters']
+    per_lane = -(-shape[2] // 32)
+    width = next((k for k in (1, 2, 4, 8, 16) if per_lane <= k), 0)
+    return f'{name}<{width}>', 1
+
+
+def bound(name, shape, bounds):
+    """(ms, 'operations' or 'bytes'): the least time an H100 SXM could
+    take for the function on this run's data. Forward: an add and a
+    min per lag pair of each computed frame; bytes, the costs of the
+    computed frames read once and the history written once. Backtrace:
+    the history rows it reads once and the lags written once (its
+    add and compare per lag are far below)."""
+    bsz, frames, lags = shape
+    last = [min(max(n, 1), frames) for n in bounds]
+    steps = sum(n - 1 for n in last)
+    if name == 'viterbi_forward':
+        ops = 2 * steps * lags * lags
+        nbytes = 4 * (sum(last) * lags + frames * bsz * lags + bsz)
+    else:
+        ops = 2 * steps * lags
+        nbytes = 4 * (sum(last) * lags + frames * bsz + bsz)
+    by_ops, by_bytes = ops / PEAK_FLOPS_FP32, nbytes / PEAK_BYTES
+    if by_ops >= by_bytes:
+        return by_ops * 1e3, 'operations'
+    return by_bytes * 1e3, 'bytes'
+
+
+def hold_kernels(shape, bounds, rng, errors, repeats=3):
     """Both kernels against their plain versions on random costs of
     ``shape``, row ``i`` holding ``bounds[i]`` frames: the forward
-    history bit-equal over each row's valid frames, the lags equal. The
-    max-abs errors go into ``errors``; returns (cost, counts, history)
-    for timing."""
+    history bit-equal over each row's valid frames, the lags equal, and
+    ``repeats`` more launches of each equal to the first. The max-abs
+    errors go into ``errors``; returns (cost, counts, history) for
+    timing."""
     from shennong_tpu_torch.ops import cuda_viterbi
     from shennong_tpu_torch.ops.pitch import PitchOpts, inter_frame_factor
 
@@ -131,52 +194,72 @@ def hold_kernels(shape, bounds, rng, errors):
     best = cuda_viterbi.viterbi_backtrace(hist, counts, factor)
     best_plain = cuda_viterbi.viterbi_backtrace_plain(plain, counts, factor)
     torch.cuda.synchronize()
-    for row, bound in enumerate(bounds):
+    for row, bound_ in enumerate(bounds):
         # frame 0 is computed even for empty rows
-        valid = max(bound, 1)
+        valid = max(bound_, 1)
         mine, ref = hist[:valid, row], plain[:valid, row]
         check(torch.equal(mine, ref),
               f'forward history differs at {shape} row {row}')
         errors['viterbi_forward'] = max(
             errors['viterbi_forward'], float((mine - ref).abs().max()))
-        check(torch.equal(best[:bound, row], best_plain[:bound, row]),
+        check(torch.equal(best[:bound_, row], best_plain[:bound_, row]),
               f'backtrace lags differ at {shape} row {row}')
-        if bound:
+        if bound_:
             errors['viterbi_backtrace'] = max(
                 errors['viterbi_backtrace'],
-                float((best[:bound, row] - best_plain[:bound, row])
+                float((best[:bound_, row] - best_plain[:bound_, row])
                       .abs().max()))
+    for _ in range(repeats):
+        check(torch.equal(
+            cuda_viterbi.viterbi_forward(cost, counts, factor), hist),
+            f'forward history changed between launches at {shape}')
+        check(torch.equal(
+            cuda_viterbi.viterbi_backtrace(hist, counts, factor), best),
+            f'backtrace lags changed between launches at {shape}')
     return cost, counts, hist
 
 
-def time_kernels(phase, shape, cost, counts, hist, plain_repeats):
-    """Kernel and plain milliseconds of both kernels (CUDA events), by
-    kernel name."""
+def time_kernels(phase, shape, bounds, cost, counts, hist, resources,
+                 plain_repeats):
+    """Kernel (and, with plain_repeats, plain) milliseconds of both
+    kernels (CUDA events), each printed with its cluster size, ptxas
+    resources, microseconds per frame, bound and share of the bound;
+    returns name -> (ms, plain_ms or None, bound_ms, bound_by)."""
     from shennong_tpu_torch.ops import cuda_viterbi
     from shennong_tpu_torch.ops.pitch import PitchOpts, inter_frame_factor
 
     factor = inter_frame_factor(PitchOpts())
-    times = {
-        'viterbi_forward': (
-            cuda_ms(lambda: cuda_viterbi.viterbi_forward(
-                cost, counts, factor), 10),
-            cuda_ms(lambda: cuda_viterbi.viterbi_forward_plain(
-                cost, counts, factor), plain_repeats)),
-        'viterbi_backtrace': (
-            cuda_ms(lambda: cuda_viterbi.viterbi_backtrace(
-                hist, counts, factor), 10),
-            cuda_ms(lambda: cuda_viterbi.viterbi_backtrace_plain(
-                hist, counts, factor), plain_repeats)),
+    launch = {
+        'viterbi_forward': (cuda_viterbi.viterbi_forward,
+                            cuda_viterbi.viterbi_forward_plain, cost),
+        'viterbi_backtrace': (cuda_viterbi.viterbi_backtrace,
+                              cuda_viterbi.viterbi_backtrace_plain, hist),
     }
-    for name, (ms, plain_ms) in times.items():
-        say(phase, f'{name} at {shape}: kernel {ms:.3f} ms, '
-            f'plain {plain_ms:.3f} ms (CUDA events)')
+    times = {}
+    for name, (kernel, plain, first) in launch.items():
+        ms = cuda_ms(lambda: kernel(first, counts, factor), 10)
+        plain_ms = cuda_ms(lambda: plain(first, counts, factor),
+                           plain_repeats) if plain_repeats else None
+        bound_ms, bound_by = bound(name, shape, bounds)
+        kind, clusters = instantiation(name, shape)
+        registers, stores, loads = resources[kind]
+        plain_text = (f', plain {plain_ms:.3f} ms' if plain_ms is not None
+                      else '')
+        say(phase, f'{name} at {shape}: kernel {ms:.3f} ms '
+            f'({ms * 1e3 / shape[1]:.3f} us per frame){plain_text} (CUDA '
+            f'events); {kind}, cluster {clusters}, {registers} registers, '
+            f'spills {stores}/{loads} B; bound {bound_ms:.4f} ms by '
+            f'{bound_by}, share of bound {bound_ms / ms:.3f}')
+        times[name] = (ms, plain_ms, bound_ms, bound_by)
     return times
 
 
-def kernels_vs_plain():
+def kernels_vs_plain(resources):
     """Every kernel against its plain version on the card, at the main
-    path's shape and at edge shapes; timed at the main path's shape."""
+    path's shape and at edge shapes (lags not divisible by the cluster
+    size, one long row, rows of 0 and 1 frames); timed at the main
+    path's shape."""
+    from shennong_tpu_torch.ops import cuda_viterbi
     from shennong_tpu_torch.ops.pitch import PitchOpts, num_pitch_frames
 
     main_frames = num_pitch_frames(int(DURATIONS[1] * RATE), PitchOpts())
@@ -189,17 +272,33 @@ def kernels_vs_plain():
         ((1, 10, 417), [10]),
         ((8, 64, 130), [64] * 8),
         ((3, 100, 7), [100, 99, 50]),
+        ((20, 50, 7), [50 - n for n in range(20)]),
+        ((4, 20, 33), [20, 0, 1, 7]),
+        ((8, 30, 417), [30, 0, 1, 30, 29, 2, 30, 15]),
         ((6, 40, 417), [40, 0, 1, 2, 39, 40]),
         ((3, 1, 417), [1, 0, 1]),
+        ((1, 20000, 417), [20000]),
     ]
+    lib = cuda_viterbi._load()
+    room = []
+    for size in range(1, cuda_viterbi.MAX_CLUSTER + 1):
+        count = ctypes.c_int()
+        check(lib.shennong_viterbi_forward_max_clusters(
+            417, size, ctypes.byref(count)) == 0, 'occupancy query failed')
+        room.append(count.value)
+    say('kernels', 'forward clusters the card holds at once (one block '
+        f'per SM), by cluster size 1..{cuda_viterbi.MAX_CLUSTER}: {room}')
     errors = {'viterbi_forward': 0.0, 'viterbi_backtrace': 0.0}
     for shape, bounds in cases:
         held = hold_kernels(shape, bounds, rng, errors)
         if shape == main[0]:
             timed = held
+        _, clusters = instantiation('viterbi_forward', shape)
         say('kernels', f'{shape}, nframes from {min(bounds)} to '
-            f'{max(bounds)}: history bit-equal, lags equal')
-    times = time_kernels('kernels', main[0], *timed, plain_repeats=3)
+            f'{max(bounds)}, cluster {clusters}: history bit-equal, lags '
+            'equal, repeated launches equal')
+    times = time_kernels('kernels', main[0], main[1], *timed, resources,
+                         plain_repeats=3)
     return errors, times
 
 
@@ -616,7 +715,7 @@ def write_wav(path, seconds, seed, rate=RATE):
     return path
 
 
-def long_audio(card, workdir, entries):
+def long_audio(card, workdir, entries, resources):
     """Hour-scale audio and the stage-wise path on the card.
 
     1. ``extract_features`` (the MFCC slice) over one hour and 16
@@ -626,7 +725,7 @@ def long_audio(card, workdir, entries):
        auto-routed (chunked) ``process`` against forced-whole
        extraction for the six processors, dither 0.
     3. Both kernels against their plain versions at the chunk shape of
-       hour-scale pitch, [8, 8400, 417].
+       hour-scale pitch, [8, 8400, 417], and at [1, 71998, 417].
     4. CUDA against the CPU on a stage-wise corpus and on a corpus of
        mixed sample rates with warps by speaker.
 
@@ -673,7 +772,7 @@ def long_audio(card, workdir, entries):
 
     chunked_against_whole(phase, write_wav(
         os.path.join(workdir, 'twelve.wav'), 720, seed=2000))
-    errors = chunk_shape_kernels(phase)
+    errors = chunk_shape_kernels(phase, resources)
 
     # CUDA against the CPU: a 90 s utterance past a lowered features
     # limit, cut in chunks of 3000 frames, sends the corpus down the
@@ -802,18 +901,55 @@ def chunked_against_whole(phase, path):
         f'NCCF max-abs {nccf:.3g} where they agree')
 
 
-def chunk_shape_kernels(phase):
-    """Both kernels against their plain versions at [8, 8400, 417], rows
-    of full, partial and zero frames: the forward history bit-equal,
-    the lags equal; kernel and plain ms from CUDA events."""
-    bounds = [8400, 8400, 8400, 8400, 5000, 1, 0, 2300]
-    shape = (8, 8400, 417)
+def chunk_shape_kernels(phase, resources):
+    """Both kernels against their plain versions at the chunk shape of
+    hour-scale pitch [8, 8400, 417], rows of full, partial and zero
+    frames, and at the 12-minute whole run [1, 71998, 417]: the forward
+    history bit-equal, the lags equal; kernel (and at the chunk shape
+    plain) ms from CUDA events."""
     errors = {'viterbi_forward': 0.0, 'viterbi_backtrace': 0.0}
-    held = hold_kernels(shape, bounds, np.random.RandomState(8), errors)
-    say(phase, f'kernels at {shape}, nframes {bounds}: history '
-        'bit-equal, lags equal')
-    time_kernels(phase, shape, *held, plain_repeats=2)
+    for shape, bounds, plain_repeats in (
+            ((8, 8400, 417), [8400, 8400, 8400, 8400, 5000, 1, 0, 2300], 2),
+            ((1, 71998, 417), [71998], 0)):
+        held = hold_kernels(shape, bounds, np.random.RandomState(8), errors,
+                            repeats=1)
+        say(phase, f'kernels at {shape}, nframes {bounds}: history '
+            'bit-equal, lags equal, repeated launches equal')
+        time_kernels(phase, shape, bounds, *held, resources,
+                     plain_repeats=plain_repeats)
+    cluster_sweep(phase)
     return errors
+
+
+def cluster_sweep(phase):
+    """The forward on one row of 8400 frames in clusters of several
+    sizes: each history bit-equal to the wrapper's, and its time per
+    frame as the arithmetic per block shrinks with the cluster."""
+    from shennong_tpu_torch.ops import cuda_viterbi
+    from shennong_tpu_torch.ops.pitch import PitchOpts, inter_frame_factor
+
+    factor = cuda_viterbi._factor32(inter_frame_factor(PitchOpts()))
+    lib = cuda_viterbi._load()
+    shape = (1, 8400, 417)
+    cost = torch.from_numpy(np.random.RandomState(9).rand(*shape).astype(
+        np.float32)).cuda()
+    counts = torch.full((1,), shape[1], dtype=torch.int32, device='cuda')
+    reference = cuda_viterbi.viterbi_forward(cost, counts, factor)
+    hist = torch.empty_like(reference)
+
+    def launch(size):
+        code = lib.shennong_viterbi_forward(
+            cost.data_ptr(), counts.data_ptr(), hist.data_ptr(), *shape,
+            factor, size, torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f'forward launch in clusters of {size}: {code}')
+
+    for size in (1, 2, 4, 8, 9, 16):
+        ms = cuda_ms(lambda: launch(size), 3)
+        check(torch.equal(hist, reference),
+              f'forward history differs in clusters of {size}')
+        say(phase, f'viterbi_forward at {shape} in clusters of {size}: '
+            f'{ms:.3f} ms ({ms * 1e3 / shape[1]:.3f} us per frame), history '
+            'bit-equal')
 
 
 #: the port's profiler spans (torch.profiler.record_function)
@@ -868,8 +1004,8 @@ def profile_layers(phase, config, utterances, wall_s):
 
 def main():
     card = probe()
-    build_kernels()
-    errors, times = kernels_vs_plain()
+    resources = build_kernels()
+    errors, times = kernels_vs_plain(resources)
     goldens()
     workdir = os.path.join(HERE, 'build', 'chip_smoke_corpus')
     launches = {'viterbi_forward': 0, 'viterbi_backtrace': 0}
@@ -881,7 +1017,7 @@ def main():
                 launches[name] += count
         frontends_pass(card, entries)
         cli_phase(workdir, entries)
-        counts, chunk_errors = long_audio(card, workdir, entries)
+        counts, chunk_errors = long_audio(card, workdir, entries, resources)
         for name, count in counts.items():
             launches[name] += count
             errors[name] = max(errors[name], chunk_errors[name])
@@ -897,7 +1033,10 @@ def main():
          'source': 'shennong_tpu_torch/csrc/viterbi.cu',
          'replaces': replaces[name], 'launches': launches[name],
          'max_abs_err': errors[name], 'ms': times[name][0],
-         'plain_ms': times[name][1]}
+         'plain_ms': times[name][1], 'bound_ms': times[name][2],
+         'bound_by': times[name][3],
+         # no single PyTorch call computes the min-plus Viterbi
+         'library_ms': None}
         for name in ('viterbi_forward', 'viterbi_backtrace')]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -35,6 +35,6 @@ setup(
     package_data={
         'shennong_tpu': ['share/crepe/*.npz', 'native/*.cpp'],
         # the PyTorch port builds its CUDA kernels from these
-        'shennong_tpu_torch': ['csrc/*.cu']},
+        'shennong_tpu_torch': ['csrc/*.cu', 'native/*.cpp']},
     zip_safe=True,
 )

@@ -13,16 +13,18 @@ and :func:`shennong_tpu_torch.pipeline.extract_features` take a
 missing. Float32 matmuls and convolutions run in full float32 (TF32
 off), the counterpart of the reference's ``Precision.HIGHEST``.
 
-The framework-free host layer (audio IO, features containers,
-serializers, utterance indexes) is shared with :mod:`shennong_tpu`.
+The port imports nothing of :mod:`shennong_tpu`: it keeps its own copy
+of the host layer (audio IO and the native runtime in ``native/``,
+features containers, serializers, utterance indexes, the pipeline
+manager), so it runs where neither that package nor jax is installed.
 """
 
 import torch
 
-from shennong_tpu.audio import Audio
-from shennong_tpu.features import Features
-from shennong_tpu.features_collection import FeaturesCollection
-from shennong_tpu.utterances import Utterance, Utterances
+from shennong_tpu_torch.audio import Audio
+from shennong_tpu_torch.features import Features
+from shennong_tpu_torch.features_collection import FeaturesCollection
+from shennong_tpu_torch.utterances import Utterance, Utterances
 
 __version__ = '0.1'
 

@@ -30,10 +30,10 @@ import sys
 
 import torch
 
-import shennong_tpu.logger as logger
-import shennong_tpu.utils as utils
-from shennong_tpu.serializers import supported_extensions
-from shennong_tpu.utterances import Utterances
+import shennong_tpu_torch.logger as logger
+import shennong_tpu_torch.utils as utils
+from shennong_tpu_torch.serializers import supported_extensions
+from shennong_tpu_torch.utterances import Utterances
 from shennong_tpu_torch import __version__, pipeline
 
 
@@ -134,7 +134,7 @@ def _parser_extract(subparsers, epilog):
 
 def _command_extract(args):
     if args.quiet:
-        log = utils.null_logger()
+        log = logger.null_logger()
     else:
         level = ('warning', 'info', 'debug')[min(args.verbose, 2)]
         log = logger.get_logger(name='speech-features-torch', level=level)

@@ -1,0 +1,37 @@
+"""A named collection of :class:`Features`, with file serialization.
+
+The port's own copy of ``shennong_tpu/features_collection.py`` (the
+methods the port calls): a dict of utterance name -> Features with
+save and load.
+"""
+
+from shennong_tpu_torch.logger import get_logger
+from shennong_tpu_torch.serializers import get_serializer
+
+
+class FeaturesCollection(dict):
+    """Dictionary of utterance name -> :class:`Features`."""
+
+    @classmethod
+    def load(cls, filename, serializer=None,
+             log=get_logger('serializer', 'warning')):
+        """Load a collection from ``filename``.
+
+        The serializer is guessed from the file extension unless given
+        explicitly (see :mod:`shennong_tpu_torch.serializers`).
+        """
+        return get_serializer(cls, filename, log, serializer).load()
+
+    def save(self, filename, serializer=None, with_properties=True,
+             log=get_logger('serializer', 'warning'), **kwargs):
+        """Save the collection to ``filename``.
+
+        Extra ``kwargs`` are serializer-specific (``compress`` for
+        npz/mat/h5f, ``scp`` for kaldi ark).
+        """
+        get_serializer(self.__class__, filename, log, serializer).save(
+            self, with_properties=with_properties, **kwargs)
+
+    def is_valid(self):
+        """True if every features item in the collection is valid"""
+        return all(feats.is_valid() for feats in self.values())

@@ -8,7 +8,7 @@ batched framing of the processors lives in
 
 import numpy as np
 
-from shennong_tpu.base import BaseProcessor
+from shennong_tpu_torch.base import BaseProcessor
 from shennong_tpu_torch.ops.framing import FrameOptions, num_frames
 
 

@@ -5,8 +5,11 @@ Counterpart of :mod:`shennong_tpu.ops.pallas_viterbi`. The forward
 min-plus recursion and the reverse argmin backtrace run as two CUDA
 kernels (``csrc/viterbi.cu``, built for ``sm_90a`` with ``nvcc`` at
 first use into ``_build/`` and bound through a plain C interface with
-ctypes). Each kernel has a plain PyTorch version here, with the same
-arithmetic and rounding.
+ctypes). The forward runs each batch row on a cluster of blocks
+(:func:`cluster_size`), the backtrace walks each row with a ring of
+prefetched history rows; both read the penalty from a mirrored table
+that holds :func:`transition_penalty`'s values. Each kernel has a
+plain PyTorch version here, with the same arithmetic and rounding.
 
 Dispatch goes by the device of the input tensor: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel (or raises), any
@@ -94,16 +97,25 @@ def _load():
         if _library is None:
             path, _ = build()
             lib = ctypes.CDLL(path)
-            for name in ('shennong_viterbi_forward',
-                         'shennong_viterbi_backtrace'):
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_float, ctypes.c_void_p]
-            lib.shennong_viterbi_forward_smem.restype = ctypes.c_size_t
-            lib.shennong_viterbi_forward_smem.argtypes = [ctypes.c_int]
+            pointers = [ctypes.c_void_p] * 3
+            sizes = [ctypes.c_int] * 3
+            lib.shennong_viterbi_forward.restype = ctypes.c_int
+            lib.shennong_viterbi_forward.argtypes = [
+                *pointers, *sizes, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p]
+            lib.shennong_viterbi_backtrace.restype = ctypes.c_int
+            lib.shennong_viterbi_backtrace.argtypes = [
+                *pointers, *sizes, ctypes.c_float, ctypes.c_void_p]
+            lib.shennong_viterbi_forward_plan.restype = None
+            lib.shennong_viterbi_forward_plan.argtypes = [
+                ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_size_t)]
+            lib.shennong_viterbi_forward_max_clusters.restype = ctypes.c_int
+            lib.shennong_viterbi_forward_max_clusters.argtypes = [
+                ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+            lib.shennong_viterbi_backtrace_smem.restype = ctypes.c_size_t
+            lib.shennong_viterbi_backtrace_smem.argtypes = [ctypes.c_int]
             lib.shennong_cuda_error_string.restype = ctypes.c_char_p
             lib.shennong_cuda_error_string.argtypes = [ctypes.c_int]
             _library = lib
@@ -135,7 +147,37 @@ def _raise_on_error(lib, code, what):
             f'({lib.shennong_cuda_error_string(code).decode()})')
 
 
+# ------------------------------------------------------------- penalty
+
+def transition_penalty(nlags, inter_frame_factor, device='cpu'):
+    """The plain versions' [L, L] float32 penalty of a step from lag i
+    to lag j, ``(i - j)^2 * factor`` rounded as the reference rounds
+    it."""
+    idx = torch.arange(nlags, device=device)
+    return ((idx[:, None] - idx[None, :]).to(torch.float32) ** 2
+            * _factor32(inter_frame_factor))
+
+
 # ------------------------------------------------------------- forward
+
+#: largest cluster the forward kernel launches (non-portable past 8)
+MAX_CLUSTER = 16
+
+
+def cluster_size(batch, nlags, sm_count, max_clusters):
+    """Blocks per row of the forward kernel (the size of its cluster).
+
+    The largest C <= :data:`MAX_CLUSTER` with C <= nlags (every block
+    owns a lag), batch * C <= sm_count (one wave, one block per SM),
+    and room on the card for ``batch`` clusters of C at once
+    (``max_clusters(C)``, from ``cudaOccupancyMaxActiveClusters``); 1
+    when no larger size qualifies.
+    """
+    for size in range(min(MAX_CLUSTER, nlags), 1, -1):
+        if batch * size <= sm_count and max_clusters(size) >= batch:
+            return size
+    return 1
+
 
 def viterbi_forward_plain(local_cost, nframes, inter_frame_factor):
     """Forward min-plus recursion as a Python loop over frames.
@@ -145,9 +187,8 @@ def viterbi_forward_plain(local_cost, nframes, inter_frame_factor):
     their state through on frames at or past ``nframes``).
     """
     bsz, maxframes, nlags = local_cost.shape
-    factor = _factor32(inter_frame_factor)
-    idx = torch.arange(nlags, device=local_cost.device)
-    penalty = (idx[:, None] - idx[None, :]).to(torch.float32) ** 2 * factor
+    penalty = transition_penalty(
+        nlags, inter_frame_factor, local_cost.device)
     hist = local_cost.new_empty((maxframes, bsz, nlags))
     if maxframes == 0:
         return hist
@@ -162,6 +203,38 @@ def viterbi_forward_plain(local_cost, nframes, inter_frame_factor):
         fwd = torch.where((f < nframes)[:, None], new, fwd)
         hist[f] = fwd
     return hist
+
+
+def forward_plan(bsz, nlags, device):
+    """How the forward kernel runs [bsz, F, nlags] on ``device``: a dict
+    of the cluster size C, threads per block, lags per lane R and
+    dynamic shared memory in bytes (cached)."""
+    device = torch.device(device)
+    key = (device.index, bsz, nlags)
+    if key not in _plans:
+        lib = _load()
+
+        def max_clusters(size):
+            count = ctypes.c_int()
+            with torch.cuda.device(device):
+                code = lib.shennong_viterbi_forward_max_clusters(
+                    nlags, size, ctypes.byref(count))
+            _raise_on_error(lib, code, 'viterbi_forward occupancy')
+            return count.value
+
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        clusters = cluster_size(bsz, nlags, sms, max_clusters)
+        threads, lanes, smem = ctypes.c_int(), ctypes.c_int(), \
+            ctypes.c_size_t()
+        lib.shennong_viterbi_forward_plan(
+            nlags, clusters, ctypes.byref(threads), ctypes.byref(lanes),
+            ctypes.byref(smem))
+        _plans[key] = {'clusters': clusters, 'threads': threads.value,
+                       'lanes_lags': lanes.value, 'smem': smem.value}
+    return _plans[key]
+
+
+_plans = {}
 
 
 def viterbi_forward(local_cost, nframes, inter_frame_factor):
@@ -184,18 +257,20 @@ def viterbi_forward(local_cost, nframes, inter_frame_factor):
     if nlags < 1:
         raise ValueError('local_cost needs at least one lag')
 
-    lib = _load()
-    if lib.shennong_viterbi_forward_smem(nlags) > 227 * 1024:
-        raise ValueError(f'{nlags} lags exceed the shared memory of a block')
     hist = torch.empty(
         (maxframes, bsz, nlags), dtype=torch.float32, device=device)
     if bsz == 0 or maxframes == 0:
         return hist
+    plan = forward_plan(bsz, nlags, device)
+    if plan['smem'] > 227 * 1024:
+        raise ValueError(f'{nlags} lags exceed the shared memory of a block')
+    lib = _load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.shennong_viterbi_forward(
             local_cost.data_ptr(), nframes.data_ptr(), hist.data_ptr(),
-            bsz, maxframes, nlags, _factor32(inter_frame_factor), stream)
+            bsz, maxframes, nlags, _factor32(inter_frame_factor),
+            plan['clusters'], stream)
     _raise_on_error(lib, code, 'viterbi_forward')
     LAUNCHES['viterbi_forward'] += 1
     return hist
@@ -210,17 +285,15 @@ def viterbi_backtrace_plain(hist, nframes, inter_frame_factor):
     best lag index per frame [F, B] int32 (ties to the lowest index).
     """
     maxframes, bsz, nlags = hist.shape
-    factor = _factor32(inter_frame_factor)
     best = torch.empty((maxframes, bsz), dtype=torch.int32,
                        device=hist.device)
     if maxframes == 0:
         return best
-    lag_ids = torch.arange(nlags, dtype=torch.float32, device=hist.device)
+    penalty = transition_penalty(nlags, inter_frame_factor, hist.device)
     current = hist[maxframes - 1].argmin(dim=1)
     best[maxframes - 1] = current
     for t in range(maxframes - 2, -1, -1):
-        diff = current.to(torch.float32)[:, None] - lag_ids[None, :]
-        scores = hist[t] + diff * diff * factor
+        scores = hist[t] + penalty[current]
         current = torch.where(
             t + 1 < nframes, scores.argmin(dim=1), current)
         best[t] = current
@@ -245,10 +318,12 @@ def viterbi_backtrace(hist, nframes, inter_frame_factor):
     if nlags < 1:
         raise ValueError('hist needs at least one lag')
 
-    lib = _load()
     best = torch.empty((maxframes, bsz), dtype=torch.int32, device=device)
     if bsz == 0 or maxframes == 0:
         return best
+    lib = _load()
+    if lib.shennong_viterbi_backtrace_smem(nlags) > 227 * 1024:
+        raise ValueError(f'{nlags} lags exceed the shared memory of a block')
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.shennong_viterbi_backtrace(

@@ -24,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from shennong_tpu.ops import mel as melmod
+from shennong_tpu_torch.ops import mel as melmod
 from shennong_tpu_torch.ops import spectral
 from shennong_tpu_torch.ops.framing import FrameOptions, frame_counts
 from shennong_tpu_torch.ops.spectral import MelOpts

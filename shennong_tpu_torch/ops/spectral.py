@@ -13,7 +13,7 @@ import math
 import numpy as np
 import torch
 
-from shennong_tpu.ops import mel as melmod
+from shennong_tpu_torch.ops import mel as melmod
 from shennong_tpu_torch.ops import framing
 from shennong_tpu_torch.ops.framing import FLT_EPSILON, FrameOptions
 

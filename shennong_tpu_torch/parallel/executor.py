@@ -29,9 +29,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from shennong_tpu.features import Features
-from shennong_tpu.features_collection import FeaturesCollection
-from shennong_tpu.audio import Audio
+from shennong_tpu_torch.features import Features
+from shennong_tpu_torch.features_collection import FeaturesCollection
+from shennong_tpu_torch.audio import Audio
 from shennong_tpu_torch.ops import pitch as pitch_ops
 from shennong_tpu_torch.ops import plp as plp_ops
 from shennong_tpu_torch.ops import spectral

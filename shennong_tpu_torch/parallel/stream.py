@@ -20,8 +20,8 @@ import concurrent.futures
 import numpy as np
 import torch
 
-from shennong_tpu import native
-from shennong_tpu.audio import Audio
+from shennong_tpu_torch import native
+from shennong_tpu_torch.audio import Audio
 from shennong_tpu_torch.ops.framing import bucket_size
 
 

@@ -35,9 +35,9 @@ import textwrap
 import numpy as np
 import torch
 
-from shennong_tpu.features import Features
-from shennong_tpu.features_collection import FeaturesCollection
-from shennong_tpu.logger import get_logger
+from shennong_tpu_torch.features import Features
+from shennong_tpu_torch.features_collection import FeaturesCollection
+from shennong_tpu_torch.logger import get_logger
 from shennong_tpu_torch.ops.postops import (
     accumulate_cmvn_stats, compute_deltas_host)
 from shennong_tpu_torch.parallel.executor import (

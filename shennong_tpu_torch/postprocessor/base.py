@@ -7,7 +7,7 @@ the provenance metadata chain carried in the properties dict.
 
 import abc
 
-from shennong_tpu.utils import copy_properties
+from shennong_tpu_torch.utils import copy_properties
 from shennong_tpu_torch.processor.base import FeaturesProcessor
 
 

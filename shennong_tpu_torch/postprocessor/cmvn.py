@@ -12,8 +12,8 @@ import copy
 import numpy as np
 import torch
 
-from shennong_tpu.features import Features
-from shennong_tpu.features_collection import FeaturesCollection
+from shennong_tpu_torch.features import Features
+from shennong_tpu_torch.features_collection import FeaturesCollection
 from shennong_tpu_torch.ops import postops
 from shennong_tpu_torch.postprocessor.base import FeaturesPostProcessor
 

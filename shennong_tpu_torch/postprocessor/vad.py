@@ -9,8 +9,8 @@ produced by EnergyProcessor, or MFCC with ``use_energy``).
 import numpy as np
 import torch
 
-from shennong_tpu.features import Features
-from shennong_tpu.features_collection import FeaturesCollection
+from shennong_tpu_torch.features import Features
+from shennong_tpu_torch.features_collection import FeaturesCollection
 from shennong_tpu_torch.ops import postops
 from shennong_tpu_torch.postprocessor.base import FeaturesPostProcessor
 

@@ -15,10 +15,10 @@ import copy
 import numpy as np
 import torch
 
-from shennong_tpu.audio import Audio
-from shennong_tpu.base import BaseProcessor
-from shennong_tpu.features import Features
-from shennong_tpu.features_collection import FeaturesCollection
+from shennong_tpu_torch.audio import Audio
+from shennong_tpu_torch.base import BaseProcessor
+from shennong_tpu_torch.features import Features
+from shennong_tpu_torch.features_collection import FeaturesCollection
 from shennong_tpu_torch.ops.framing import (
     FrameOptions, WINDOW_TYPES, num_frames)
 from shennong_tpu_torch.ops.spectral import MelOpts
@@ -470,7 +470,7 @@ class MelFeaturesProcessor(FramesProcessor, metaclass=abc.ABCMeta):
 
     def mel_weights(self, vtln_warp):
         """Dense mel filterbank matrix (numpy) for the given VTLN warp"""
-        from shennong_tpu.ops import mel as melmod
+        from shennong_tpu_torch.ops import mel as melmod
         opts = self.frame_options()
         weights, _ = melmod.mel_banks(
             self._num_bins, opts.padded_window_size, opts.sample_rate,

@@ -6,7 +6,7 @@ Counterpart of :mod:`shennong_tpu.processor.energy`, running
 
 import numpy as np
 
-from shennong_tpu.features import Features
+from shennong_tpu_torch.features import Features
 from shennong_tpu_torch.ops.spectral import EnergyOpts, energy_batch
 from shennong_tpu_torch.processor.base import FramesProcessor
 

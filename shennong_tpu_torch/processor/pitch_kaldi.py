@@ -10,8 +10,8 @@ import copy
 import numpy as np
 import torch
 
-from shennong_tpu.features import Features
-from shennong_tpu.features_collection import FeaturesCollection
+from shennong_tpu_torch.features import Features
+from shennong_tpu_torch.features_collection import FeaturesCollection
 from shennong_tpu_torch.ops.pitch import (
     PitchOpts, ProcessPitchOpts, compute_pitch, compute_pitch_long,
     num_pitch_frames, process_pitch)

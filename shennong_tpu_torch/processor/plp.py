@@ -7,7 +7,7 @@ the host-side streaming :class:`RastaFilter`.
 
 import numpy as np
 
-from shennong_tpu.ops import mel as melmod
+from shennong_tpu_torch.ops import mel as melmod
 from shennong_tpu_torch.ops.plp import (
     _RASTA_DEN1, _RASTA_NUM, PlpOpts, _lfilter_zi_fir, plp_batch)
 from shennong_tpu_torch.processor.base import MelFeaturesProcessor

@@ -7,7 +7,7 @@ device.
 
 import numpy as np
 
-from shennong_tpu.features import Features
+from shennong_tpu_torch.features import Features
 from shennong_tpu_torch.ops.spectral import SpectrogramOpts, spectrogram_batch
 from shennong_tpu_torch.processor.base import FramesProcessor
 

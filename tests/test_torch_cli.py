@@ -17,11 +17,11 @@ import torch
 import yaml
 
 from shennong_tpu import pipeline as jpipeline
-from shennong_tpu.features_collection import FeaturesCollection
-from shennong_tpu.utterances import Utterances
 from shennong_tpu_torch import pipeline
 from shennong_tpu_torch.cli import main
+from shennong_tpu_torch.features_collection import FeaturesCollection
 from shennong_tpu_torch.processor import energy
+from shennong_tpu_torch.utterances import Utterances
 
 torch.set_num_threads(2)
 

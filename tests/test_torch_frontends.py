@@ -33,9 +33,10 @@ import jax.numpy as jnp
 from shennong_tpu import frames as jframes
 from shennong_tpu import pipeline as jpipeline
 from shennong_tpu import window as jwindow
-from shennong_tpu.audio import Audio
-from shennong_tpu.features import Features
-from shennong_tpu.features_collection import FeaturesCollection
+from shennong_tpu.audio import Audio as JAudio
+from shennong_tpu.features import Features as JFeatures
+from shennong_tpu.features_collection import (
+    FeaturesCollection as JFeaturesCollection)
 from shennong_tpu.ops import framing as jframing
 from shennong_tpu.ops import mel as melmod
 from shennong_tpu.ops import postops as jpostops
@@ -43,9 +44,11 @@ from shennong_tpu.ops import spectral as jspectral
 from shennong_tpu.postprocessor import cmvn as jcmvn
 from shennong_tpu.processor import filterbank as jfilterbank
 from shennong_tpu.processor import spectrogram as jspectrogram
-from shennong_tpu.utils import dict_equal
-from shennong_tpu.utterances import Utterances
+from shennong_tpu.utterances import Utterances as JUtterances
 from shennong_tpu_torch import frames, pipeline, window
+from shennong_tpu_torch.audio import Audio
+from shennong_tpu_torch.features import Features
+from shennong_tpu_torch.features_collection import FeaturesCollection
 from shennong_tpu_torch.ops import framing, postops, spectral
 from shennong_tpu_torch.pipeline_manager import PipelineManager
 from shennong_tpu_torch.postprocessor import cmvn
@@ -53,6 +56,8 @@ from shennong_tpu_torch.postprocessor.cmvn import (
     SlidingWindowCmvnPostProcessor)
 from shennong_tpu_torch.processor.filterbank import FilterbankProcessor
 from shennong_tpu_torch.processor.spectrogram import SpectrogramProcessor
+from shennong_tpu_torch.utils import dict_equal
+from shennong_tpu_torch.utterances import Utterances
 from tests import kaldi_oracle
 from tests.test_torch_ops import padded_batch
 # fixtures: 4 utterances of 2 speakers, the energy VAD without dither
@@ -193,13 +198,13 @@ def test_sliding_window_cmvn(center, normalize_variance, cmn_window,
 
 def test_sliding_window_cmvn_postprocessor(monkeypatch):
     rng = np.random.RandomState(3)
-    collection, ref_collection = FeaturesCollection(), FeaturesCollection()
+    collection, ref_collection = FeaturesCollection(), JFeaturesCollection()
     for index, nframes in enumerate([400, 90, 250]):
         data = (rng.randn(nframes, 13) * 3 + 1).astype(np.float32)
         times = np.arange(nframes) * 0.01
         props = {'mfcc': {'num_ceps': 13}}
         collection[f'u{index}'] = Features(data, times, props)
-        ref_collection[f'u{index}'] = Features(data, times, props)
+        ref_collection[f'u{index}'] = JFeatures(data, times, props)
     kwargs = dict(center=False, cmn_window=200, normalize_variance=True)
     ours = SlidingWindowCmvnPostProcessor(**kwargs)
     ref = jcmvn.SlidingWindowCmvnPostProcessor(**kwargs)
@@ -231,11 +236,13 @@ def test_processors_golden_and_oracle(name):
     signal = audio.data.astype(np.float64)
     if name == 'fbank':
         ours = FilterbankProcessor(dither=0).process(audio, device='cpu')
-        ref = jfilterbank.FilterbankProcessor(dither=0).process(audio)
+        ref = jfilterbank.FilterbankProcessor(dither=0).process(
+            JAudio.load(REAL_WAV))
         oracle = kaldi_oracle.fbank(signal)
     else:
         ours = SpectrogramProcessor(dither=0).process(audio, device='cpu')
-        ref = jspectrogram.SpectrogramProcessor(dither=0).process(audio)
+        ref = jspectrogram.SpectrogramProcessor(dither=0).process(
+            JAudio.load(REAL_WAV))
         oracle = kaldi_oracle.spectrogram(signal)
     assert ours.shape == golden[name].shape
     assert np.abs(ours.data - golden[name]).max() < 1e-3
@@ -329,10 +336,10 @@ def test_pipeline_matches_reference(corpus, no_energy_dither, features,
     config = pipeline.get_default_config(
         features, with_cmvn=True, with_delta=delta)
     config[features]['dither'] = 0
-    utterances = Utterances(corpus)
-    ref = jpipeline.extract_features(copy.deepcopy(config), utterances)
+    ref = jpipeline.extract_features(
+        copy.deepcopy(config), JUtterances(corpus))
     ours = pipeline.extract_features(
-        copy.deepcopy(config), utterances, device='cpu')
+        copy.deepcopy(config), Utterances(corpus), device='cpu')
     assert list(ours.keys()) == list(ref.keys())
     for name in ref:
         assert ours[name].shape == ref[name].shape, name

@@ -28,8 +28,8 @@ import pytest
 import scipy.io.wavfile
 import torch
 
-from shennong_tpu.audio import Audio
-from shennong_tpu.utterances import Utterances
+from shennong_tpu_torch.audio import Audio
+from shennong_tpu_torch.utterances import Utterances
 from shennong_tpu_torch import pipeline
 from shennong_tpu_torch.ops import cuda_viterbi, plp, postops
 from shennong_tpu_torch.processor import energy
@@ -60,6 +60,14 @@ CASES = [
         1).randint(0, 599, 32)]),
     # a group of hour-scale pitch chunks (compute_pitch_long)
     ((8, 8400, 417), [8400, 8400, 8400, 5000, 8400, 1, 0, 3000]),
+    # lags not divisible by the forward's cluster size, with rows of 0
+    # and 1 frames
+    ((8, 64, 417), [64, 0, 1, 64, 63, 2, 64, 30]),
+    ((20, 50, 7), [50 - n for n in range(19)] + [0]),
+    # one long row: the largest cluster
+    ((1, 20000, 417), [20000]),
+    # past 512 lags the backtrace streams each lane's scores
+    ((2, 30, 600), [30, 12]),
 ]
 
 pytestmark = pytest.mark.gpu
@@ -91,6 +99,17 @@ def test_kernels_match_plain(cuda_device, shape, bounds):
         valid = max(bound, 1)  # frame 0 is computed for empty rows too
         assert torch.equal(hist[:valid, row], plain[:valid, row]), row
         assert torch.equal(best[:bound, row], best_plain[:bound, row]), row
+
+
+def test_cluster_sizes(cuda_device):
+    """The forward spreads a row over a cluster of blocks: at least 2 at
+    the corpus batch (B = 64), at least 8 at a group of hour-scale
+    chunks (B = 8), never more than the lags, 1 past the SMs."""
+    assert cuda_viterbi.forward_plan(64, 417, cuda_device)['clusters'] >= 2
+    assert cuda_viterbi.forward_plan(8, 417, cuda_device)['clusters'] >= 8
+    assert cuda_viterbi.forward_plan(3, 7, cuda_device)['clusters'] <= 7
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert cuda_viterbi.forward_plan(sms, 417, cuda_device)['clusters'] == 1
 
 
 def test_processors_golden(cuda_device):

@@ -19,9 +19,9 @@ import torch
 
 from shennong_tpu import pipeline as jpipeline
 from shennong_tpu.processor import energy as jenergy
-from shennong_tpu.utils import dict_equal
-from shennong_tpu.utterances import Utterances
+from shennong_tpu.utterances import Utterances as JUtterances
 from shennong_tpu_torch import pipeline
+from shennong_tpu_torch.audio import Audio
 from shennong_tpu_torch.parallel import executor as executor_module
 from shennong_tpu_torch.pipeline_manager import PipelineManager
 from shennong_tpu_torch.processor import energy
@@ -29,6 +29,8 @@ from shennong_tpu_torch.processor.energy import EnergyProcessor
 from shennong_tpu_torch.processor.mfcc import MfccProcessor
 from shennong_tpu_torch.processor.pitch_kaldi import (
     KaldiPitchPostProcessor, KaldiPitchProcessor)
+from shennong_tpu_torch.utils import dict_equal
+from shennong_tpu_torch.utterances import Utterances
 
 torch.set_num_threads(2)
 
@@ -125,7 +127,6 @@ def test_manager_resolves_port_classes():
 def test_processors_golden():
     """The golden regression lock of tests/test_real_audio.py, on the
     port (CPU)."""
-    from shennong_tpu.audio import Audio
     audio = Audio.load(REAL_WAV)
     golden = np.load(os.path.join(REPO, 'tests', 'data', 'golden_real.npz'))
     pitch = KaldiPitchProcessor().process(audio, device='cpu')
@@ -142,7 +143,6 @@ def test_processors_golden():
 
 
 def test_processor_dither_is_seeded():
-    from shennong_tpu.audio import Audio
     audio = Audio.load(REAL_WAV)
     proc = MfccProcessor()
     first, again, other = (
@@ -157,10 +157,10 @@ def test_processor_dither_is_seeded():
 
 def test_slice_matches_reference(corpus, no_energy_dither):
     config = deterministic_config()
-    utterances = Utterances(corpus)
-    ref = jpipeline.extract_features(copy.deepcopy(config), utterances)
+    ref = jpipeline.extract_features(
+        copy.deepcopy(config), JUtterances(corpus))
     ours = pipeline.extract_features(
-        copy.deepcopy(config), utterances, device='cpu')
+        copy.deepcopy(config), Utterances(corpus), device='cpu')
     assert list(ours.keys()) == list(ref.keys())
     for name in ref:
         assert ours[name].shape == ref[name].shape, name

@@ -24,16 +24,18 @@ import torch
 import jax.numpy as jnp
 
 from shennong_tpu import pipeline as jpipeline
-from shennong_tpu.audio import Audio
+from shennong_tpu.audio import Audio as JAudio
 from shennong_tpu.ops import framing as jframing
 from shennong_tpu.ops import mel as melmod
 from shennong_tpu.ops import plp as jplp
 from shennong_tpu.processor import plp as jplp_processor
-from shennong_tpu.utils import dict_equal
-from shennong_tpu.utterances import Utterances
+from shennong_tpu.utterances import Utterances as JUtterances
 from shennong_tpu_torch import pipeline
+from shennong_tpu_torch.audio import Audio
 from shennong_tpu_torch.ops import framing, plp, spectral
 from shennong_tpu_torch.processor.plp import PlpProcessor, RastaFilter
+from shennong_tpu_torch.utils import dict_equal
+from shennong_tpu_torch.utterances import Utterances
 from tests import kaldi_oracle
 from tests.test_torch_ops import padded_batch
 # fixtures: 4 utterances of 2 speakers, the energy VAD without dither
@@ -241,7 +243,8 @@ def test_processor_golden_and_oracle(name, rasta):
     assert np.abs(ours.data - golden[name]).max() < 1e-3
     oracle = kaldi_oracle.plp(audio.data.astype(np.float64), rasta=rasta)
     assert np.abs(ours.data - oracle).max() < 1e-3
-    ref = jplp_processor.PlpProcessor(dither=0, rasta=rasta).process(audio)
+    ref = jplp_processor.PlpProcessor(dither=0, rasta=rasta).process(
+        JAudio.load(REAL_WAV))
     assert np.abs(ours.data - ref.data).max() < 1e-4
     assert dict_equal(ours.properties, ref.properties)
 
@@ -262,10 +265,10 @@ def test_rasta_plp_pitch_slice_matches_reference(corpus, no_energy_dither):
     config['plp']['rasta'] = True
     config['plp']['dither'] = 0
     config['pitch']['postprocessing']['delta_pitch_noise_stddev'] = 0
-    utterances = Utterances(corpus)
-    ref = jpipeline.extract_features(copy.deepcopy(config), utterances)
+    ref = jpipeline.extract_features(
+        copy.deepcopy(config), JUtterances(corpus))
     ours = pipeline.extract_features(
-        copy.deepcopy(config), utterances, device='cpu')
+        copy.deepcopy(config), Utterances(corpus), device='cpu')
     assert list(ours.keys()) == list(ref.keys())
     for name in ref:
         assert ours[name].shape == ref[name].shape, name

@@ -30,7 +30,10 @@ import scipy.io.wavfile
 import torch
 
 from shennong_tpu import pipeline as jpipeline
-from shennong_tpu.features_collection import FeaturesCollection
+from shennong_tpu.audio import Audio as JAudio
+from shennong_tpu.features import Features as JFeatures
+from shennong_tpu.features_collection import (
+    FeaturesCollection as JFeaturesCollection)
 from shennong_tpu.parallel.executor import BatchExecutor as JBatchExecutor
 from shennong_tpu.postprocessor import delta as jdelta
 from shennong_tpu.postprocessor import vad as jvad
@@ -40,8 +43,9 @@ from shennong_tpu.processor import mfcc as jmfcc
 from shennong_tpu.processor import pitch_kaldi as jpitch
 from shennong_tpu.processor import plp as jplp
 from shennong_tpu.processor import spectrogram as jspectrogram
-from shennong_tpu.utterances import Utterances
+from shennong_tpu.utterances import Utterances as JUtterances
 from shennong_tpu_torch import pipeline
+from shennong_tpu_torch.features_collection import FeaturesCollection
 from shennong_tpu_torch.parallel import executor as executor_module
 from shennong_tpu_torch.parallel import stream
 from shennong_tpu_torch.parallel.executor import BatchExecutor
@@ -55,6 +59,7 @@ from shennong_tpu_torch.processor.pitch_kaldi import (
     KaldiPitchPostProcessor, KaldiPitchProcessor)
 from shennong_tpu_torch.processor.plp import PlpProcessor
 from shennong_tpu_torch.processor.spectrogram import SpectrogramProcessor
+from shennong_tpu_torch.utterances import Utterances
 
 from tests.conftest import make_speech_like_signal
 from tests.pitch_oracle import assert_lag_decisions
@@ -62,6 +67,28 @@ from tests.pitch_oracle import assert_lag_decisions
 torch.set_num_threads(2)
 
 REAL_DATA = os.path.join(os.path.dirname(__file__), 'data')
+
+
+def jax_utterances(utterances):
+    """The JAX package's Utterances of the same entries."""
+    return JUtterances([
+        tuple(field for field in (
+            utt.name, utt.audio_file, utt.speaker, utt.tstart, utt.tstop)
+            if field is not None)
+        for utt in utterances])
+
+
+def jax_audio(audio):
+    """The JAX package's Audio of the same samples."""
+    return JAudio(audio.data, audio.sample_rate, validate=False)
+
+
+def jax_collection(collection):
+    """The JAX package's FeaturesCollection of the same arrays."""
+    return JFeaturesCollection({
+        name: JFeatures(features.data, features.times,
+                        copy.deepcopy(features.properties), validate=False)
+        for name, features in collection.items()})
 
 #: the six frame processors, as (port class, JAX class, kwargs)
 PROCESSORS = {
@@ -152,7 +179,7 @@ def check_slice(ours, ref, utterances, pitch_columns=3):
         raw = KaldiPitchProcessor(
             sample_rate=audio.sample_rate).process(audio, device='cpu')
         ref_raw = jpitch.KaldiPitchProcessor(
-            sample_rate=audio.sample_rate).process(audio)
+            sample_rate=audio.sample_rate).process(jax_audio(audio))
         if np.array_equal(raw.data[:, 1], ref_raw.data[:, 1]):
             assert np.abs(mine - theirs).max() < 1e-3, utt.name
         else:
@@ -173,7 +200,8 @@ def test_batch_executor_oversize_and_warps(segments, lowered_limit):
     for warps in (None, {'big': 1.1, 'small1': 0.9, 'small2': 1.0}):
         ours = BatchExecutor(proc, device='cpu').process_all(
             segments, vtln_warp=warps)
-        ref = JBatchExecutor(ref_proc).process_all(segments, vtln_warp=warps)
+        ref = JBatchExecutor(ref_proc).process_all(
+            jax_utterances(segments), vtln_warp=warps)
         assert list(ours.keys()) == list(ref.keys())
         for utt in segments:
             assert ours[utt.name].shape == ref[utt.name].shape
@@ -206,7 +234,7 @@ def test_process_all(segments, name):
     JAX package's."""
     ours_cls, ref_cls, kwargs = PROCESSORS[name]
     ours = ours_cls(**kwargs).process_all(segments, device='cpu')
-    ref = ref_cls(**kwargs).process_all(segments)
+    ref = ref_cls(**kwargs).process_all(jax_utterances(segments))
     assert sorted(ours.keys()) == sorted(ref.keys())
     for utt in segments:
         mine, theirs = ours[utt.name], ref[utt.name]
@@ -351,7 +379,8 @@ def energies(segments):
 def test_vad_process_all(energies):
     for kwargs in ({}, {'frames_context': 2, 'energy_mean_scale': 0.3}):
         ours = VadPostProcessor(**kwargs).process_all(energies, device='cpu')
-        ref = jvad.VadPostProcessor(**kwargs).process_all(energies)
+        ref = jvad.VadPostProcessor(**kwargs).process_all(
+            jax_collection(energies))
         assert list(ours.keys()) == list(ref.keys())
         for name in ref:
             assert ours[name].dtype == np.uint8
@@ -366,7 +395,8 @@ def test_delta_process_all(segments):
     feats = MfccProcessor(dither=0).process_all(segments, device='cpu')
     for kwargs in ({}, {'order': 1, 'window': 3}):
         ours = DeltaPostProcessor(**kwargs).process_all(feats, device='cpu')
-        ref = jdelta.DeltaPostProcessor(**kwargs).process_all(feats)
+        ref = jdelta.DeltaPostProcessor(**kwargs).process_all(
+            jax_collection(feats))
         for name in ref:
             assert ours[name].shape == ref[name].shape
             assert np.abs(ours[name].data - ref[name].data).max() < 1e-5
@@ -379,7 +409,7 @@ def test_pitch_post_process_collection(segments):
     ours = KaldiPitchPostProcessor(**post).process_collection(
         raw, batch_rows=2, device='cpu')
     ref = jpitch.KaldiPitchPostProcessor(**post).process_collection(
-        raw, batch_rows=2)
+        jax_collection(raw), batch_rows=2)
     assert list(ours.keys()) == list(raw.keys())
     for name in raw:
         assert ours[name].shape == ref[name].shape == (raw[name].nframes, 4)
@@ -432,7 +462,8 @@ def test_stagewise_pipeline(corpus, lowered_limit, no_energy_dither,
     utterances = Utterances(corpus)
     ours = pipeline.extract_features(
         copy.deepcopy(config), utterances, device='cpu')
-    ref = jpipeline.extract_features(copy.deepcopy(config), utterances)
+    ref = jpipeline.extract_features(
+        copy.deepcopy(config), jax_utterances(utterances))
     check_slice(ours, ref, utterances)
     for name in ours:
         assert ours[name].shape[1] == 42
@@ -452,7 +483,8 @@ def test_stagewise_pipeline_plp(corpus, lowered_limit, no_energy_dither,
     utterances = Utterances(corpus[:3])
     ours = pipeline.extract_features(
         copy.deepcopy(config), utterances, device='cpu')
-    ref = jpipeline.extract_features(copy.deepcopy(config), utterances)
+    ref = jpipeline.extract_features(
+        copy.deepcopy(config), jax_utterances(utterances))
     check_slice(ours, ref, utterances)
 
 
@@ -471,7 +503,7 @@ def test_warps(corpus, no_energy_dither, monkeypatch, path, by):
     ours = pipeline.extract_features(
         copy.deepcopy(config), utterances, warps=warps, device='cpu')
     ref = jpipeline.extract_features(
-        copy.deepcopy(config), utterances, warps=warps)
+        copy.deepcopy(config), jax_utterances(utterances), warps=warps)
     check_slice(ours, ref, utterances)
     for utt in utterances:
         warp = warps[utt.speaker if by == 'speaker' else utt.name]
@@ -521,7 +553,8 @@ def test_mixed_rates(mixed_rates, no_energy_dither):
         warnings.simplefilter('ignore')
         feats = pipeline.extract_features(
             copy.deepcopy(config), mixed_rates, device='cpu')
-        ref = jpipeline.extract_features(copy.deepcopy(config), mixed_rates)
+        ref = jpipeline.extract_features(
+            copy.deepcopy(config), jax_utterances(mixed_rates))
 
     # mfcc * delta + pitch = 13 * 3 + 3 = 42 columns
     assert feats['u1'].shape == (98, 42)
@@ -555,6 +588,6 @@ def test_mixed_rates_with_warps(mixed_rates, no_energy_dither):
         ours = pipeline.extract_features(
             copy.deepcopy(config), mixed_rates, warps=warps, device='cpu')
         ref = jpipeline.extract_features(
-            copy.deepcopy(config), mixed_rates, warps=warps)
+            copy.deepcopy(config), jax_utterances(mixed_rates), warps=warps)
         check_slice(ours, ref, mixed_rates)
     assert ours['u3'].properties['filterbank']['vtln_warp'] == 0.95
