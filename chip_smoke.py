@@ -23,9 +23,15 @@ generated corpus of 256 utterances (4 s and 6 s, 16 speakers):
   slice (the stage-wise pass 1, the hour in chunks), chunked against
   whole extraction on a 12-minute utterance, both kernels at the chunk
   shape of hour-scale pitch [8, 8400, 417], and the stage-wise and
-  mixed-sample-rate paths on the card against the CPU.
+  mixed-sample-rate paths on the card against the CPU;
+- the VTLN slice (BASELINE config 4): ``extract_features`` with the
+  MFCC + Kaldi pitch + CMVN + delta configuration and a ``vtln``
+  section at full width (a 64-component UBM, 41 warp classes, 15
+  rounds, by speaker), its wall split into the training's stages, its
+  corpus uploads counted, and the trained UBM, transforms, warps and
+  features on the card against the CPU on 16 utterances of 4 speakers.
 
-Both slices and the long-audio run must go through both Viterbi
+The three slices and the long-audio run must go through both Viterbi
 kernels. Every phase prints
 its lines; any failure raises and the script exits non-zero. The
 second-to-last lines are the kernels' JSON record and the card's name
@@ -58,6 +64,9 @@ NUM_SPEAKERS = 16
 DURATIONS = (4.0, 6.0)   # seconds, alternating
 RATE = 16000
 RUNS = 5                 # timed warm runs of the slice
+VTLN_RUNS = 3            # timed runs of the VTLN slice
+MODEL_TOL = 2e-3         # cuda vs cpu on the trained UBM and transforms
+TIE_TOL = 1e-4           # relative objective gap of two tied warp classes
 
 
 def say(phase, message):
@@ -952,15 +961,347 @@ def cluster_sweep(phase):
             'bit-equal')
 
 
+# ------------------------------------------------------------ VTLN slice
+
+def vtln_config():
+    """BASELINE config 4: MFCC + Kaldi pitch + CMVN + delta, with the
+    warps trained by a 'vtln' section at the JAX package's defaults."""
+    from shennong_tpu_torch import pipeline
+
+    return pipeline.get_default_config(
+        'mfcc', with_pitch='kaldi', with_cmvn=True, with_delta=True,
+        with_vtln='simple')
+
+
+class UploadCounter:
+    """Counts the signal batches decoded for an upload to the card
+    (``parallel.stream.decode_batch``): a corpus whose sweeps share one
+    SignalCache decodes each batch once."""
+
+    def __init__(self):
+        from shennong_tpu_torch.parallel import stream
+
+        self.stream, self.count = stream, 0
+        self.decode = stream.decode_batch
+
+    def __enter__(self):
+        def counted(*args, **kwargs):
+            self.count += 1
+            return self.decode(*args, **kwargs)
+        self.stream.decode_batch = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.stream.decode_batch = self.decode
+
+
+#: the stages of a VTLN slice run, each from the first start of its
+#: span to the first start of the next one (the stages end on host
+#: reads, so these intervals split the wall)
+VTLN_PARTS = (
+    ('UBM front-end', 'ubm.frontend'), ('UBM init EM', 'ubm.init'),
+    ('UBM main EM, then the VTLN set-up', 'ubm.em'),
+    ('warp moments (42 banks)', 'vtln.moments'),
+    ('base-transform solve', 'vtln.solve'), ('gselect', 'vtln.gselect'),
+    ('LVTLN rounds', 'vtln.rounds'),
+    ('warped extraction (pass 1 + pass 2)', 'pass1.dispatch'))
+
+
+def vtln_slice(card, entries):
+    """The VTLN slice over the corpus: a cold run, VTLN_RUNS timed runs
+    (launches, uploads, peak memory), the outputs and the 16 warps
+    checked, a profiled run split into the training's stages, and the
+    card against the CPU on 16 utterances of 4 speakers. Returns the
+    Viterbi launches of the timed runs."""
+    from shennong_tpu_torch import Utterances
+    from shennong_tpu_torch import pipeline
+    from shennong_tpu_torch.ops import cuda_viterbi
+
+    phase = 'vtln slice'
+    begin = time.perf_counter()
+    config = vtln_config()
+    utterances = Utterances(entries)
+    audio_seconds = sum(utt.duration for utt in utterances)
+    vtln = config['vtln']
+    say(phase, f"{vtln['ubm']['num_gauss']}-component UBM "
+        f"({vtln['ubm']['num_iters_init']} init + {vtln['ubm']['num_iters']} "
+        f"EM iterations), warps {vtln['min_warp']} to {vtln['max_warp']} by "
+        f"{vtln['warp_step']}, {vtln['num_iters']} LVTLN iterations, "
+        f"norm {vtln['norm_type']}, by speaker")
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    pipeline.extract_features(copy.deepcopy(config), utterances,
+                              device='cuda')
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - start
+
+    cuda_viterbi.reset_launches()
+    walls, peaks = [], []
+    with UploadCounter() as uploads:
+        for _ in range(VTLN_RUNS):
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = pipeline.extract_features(
+                copy.deepcopy(config), utterances, device='cuda')
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    launches = dict(cuda_viterbi.LAUNCHES)
+    for name, count in launches.items():
+        check(count > 0, f'the {phase} never launched {name}')
+    batches = -(-NUM_UTTERANCES // 64)
+    check(uploads.count == VTLN_RUNS * batches,
+          f'{uploads.count} batch uploads in {VTLN_RUNS} runs, not '
+          f'{batches} per run: the sweeps do not share one SignalCache')
+
+    check(len(out) == NUM_UTTERANCES, f'{len(out)} outputs')
+    warps = {}
+    for utt in utterances:
+        feats = out[utt.name]
+        nsamples = int(round(utt.duration * RATE))
+        check(feats.shape == (expected_frames(nsamples), 42),
+              f'{utt.name}: shape {feats.shape}')
+        check(np.isfinite(feats.data).all(), f'{utt.name}: non-finite')
+        warp = feats.properties['mfcc']['vtln_warp']
+        check(warps.setdefault(utt.speaker, warp) == warp,
+              f'{utt.name}: warp {warp} is not its speaker\'s')
+    check(len(warps) == NUM_SPEAKERS, f'{len(warps)} speaker warps')
+    last = round((vtln['max_warp'] - vtln['min_warp']) / vtln['warp_step'])
+    for speaker, warp in warps.items():
+        index = round((warp - vtln['min_warp']) / vtln['warp_step'])
+        check(0 <= index <= last and abs(
+            vtln['min_warp'] + index * vtln['warp_step'] - warp) < 1e-12,
+            f'{speaker}: warp {warp} is off the {last + 1}-class grid')
+    seconds = float(np.median(walls))
+    say(phase, f'{NUM_UTTERANCES} utterances ({audio_seconds:.0f} s of '
+        f'audio, {NUM_SPEAKERS} speakers): cold run {cold:.3f} s; '
+        f'{VTLN_RUNS} timed runs: wall median {seconds:.4f} s (min '
+        f'{min(walls):.4f}, max {max(walls):.4f}), xRT median '
+        f'{audio_seconds / seconds:.1f} on {card}; peak device memory '
+        f'{max(peaks):.2f} GiB; corpus uploads {uploads.count // VTLN_RUNS} '
+        f'batches of 64 per run ({batches} batches: the UBM front-end, the '
+        f'warp moments and pass 1 share them); launches {launches}')
+    say(phase, f'warps by speaker, on the {last + 1}-class grid: '
+        + ', '.join(f'{spk} {warps[spk]:.2f}' for spk in sorted(warps)))
+    profile_layers(phase, config, utterances, seconds, parts=VTLN_PARTS)
+    vtln_against_cpu(phase, config, entries)
+    say(phase, f'phase time {time.perf_counter() - begin:.1f} s')
+    return launches
+
+
+def vtln_trainer(config, device):
+    """The VTLN trainer of ``config``'s section and its UBM, every
+    random source at 0 (dither off; the UBM's draws from its seed)."""
+    from shennong_tpu_torch.processor.ubm import DiagUbmProcessor
+    from shennong_tpu_torch.processor.vtln import VtlnProcessor
+
+    params = copy.deepcopy(config['vtln'])
+    ubm_params = params.pop('ubm')
+    vtln = VtlnProcessor(**params)
+    vtln.features['mfcc']['dither'] = 0
+    ubm_params['features'] = copy.deepcopy(vtln.features)
+    return vtln, DiagUbmProcessor(**ubm_params)
+
+
+def class_objective(stats, group, base, norm_type, classes):
+    """The fMLLR objective of ``group`` at each of ``classes`` (float64,
+    Kaldi LinearVtln::ComputeTransform) from the final round's
+    statistics (beta [S], K [S, D, D+1], G [S, D, D+1, D+1])."""
+    from shennong_tpu_torch.ops import fmllr
+
+    beta, K, G = stats
+    group_stats = fmllr.FmllrStats(K.shape[1])
+    group_stats.beta = float(beta[group])
+    group_stats.K, group_stats.G = K[group], G[group]
+    solve = {'offset': fmllr.solve_offset, 'diag': fmllr.solve_diagonal}
+    values = []
+    for c in classes:
+        moved = fmllr.apply_transform_to_stats(base[c], group_stats)
+        secondary = (solve[norm_type](moved) if norm_type in solve
+                     else np.concatenate(
+                         [np.eye(moved.dim), np.zeros((moved.dim, 1))], 1))
+        values.append(fmllr.auxf(secondary, moved))
+    return values
+
+
+def training_frames(config, utterances, cmvn):
+    """The VTLN training's selected frames (voiced, subsampled) on the
+    CPU, float64 [N, D]: with its sliding CMVN (the frames the speaker
+    transforms act on) or without (the base transforms')."""
+    from shennong_tpu_torch.processor import ubm as ubm_module
+
+    vtln, ubm = vtln_trainer(config, 'cpu')
+    features = copy.deepcopy(vtln.features)
+    if not cmvn:
+        del features['sliding_window_cmvn']
+    flat, _, w_em, _, _ = ubm_module.stream_frontend(
+        features, ubm.vad, vtln.subsample, utterances, device='cpu')
+    return flat[w_em > 0].to(torch.float64).numpy()
+
+
+def action_gap(ours, ref, frames):
+    """How far two transforms (linear [D, D] or affine [D, D+1]) differ
+    in what they do to ``frames``: the largest over output dimensions
+    of the RMS over the frames of their difference, relative past 1 to
+    the RMS of ``ref``'s output."""
+    if ref.shape[1] > frames.shape[1]:
+        frames = np.concatenate([frames, np.ones((len(frames), 1))], 1)
+    diff = np.sqrt(((frames @ (ours - ref).T) ** 2).mean(axis=0))
+    scale = np.sqrt(((frames @ ref.T) ** 2).mean(axis=0))
+    return float((diff / np.maximum(1.0, scale)).max())
+
+
+def vtln_against_cpu(phase, config, entries):
+    """The UBM and the VTLN training on the card against the CPU on 16
+    utterances of 4 speakers, every random source at 0: the warps equal
+    or a proven tie (the two classes' objectives within TIE_TOL of each
+    other on each device's final statistics), the UBM (trained, and
+    after the rounds) within MODEL_TOL, the base and speaker transforms
+    within MODEL_TOL in what they do to the training frames
+    (:func:`action_gap`; their entries are printed too: the
+    least-squares fit of the base transforms is ill-conditioned, so
+    entries move where the frames have no variance), and the features
+    of the warped extraction within SLICE_TOL where the warps are
+    equal. Every difference is printed before any is checked."""
+    from shennong_tpu_torch import Utterances
+    from shennong_tpu_torch.ops import fmllr
+
+    subset = Utterances([e for i, e in enumerate(entries) if i % 16 < 4][:16])
+    solve = fmllr.solve_warp_classes
+    trained = {}
+    for device in ('cuda', 'cpu'):
+        stats = []
+
+        def recorded(beta, K, G, *args, **kwargs):
+            stats[:] = [beta, K, G]
+            return solve(beta, K, G, *args, **kwargs)
+
+        vtln, ubm = vtln_trainer(config, device)
+        start = time.perf_counter()
+        fmllr.solve_warp_classes = recorded
+        try:
+            ubm.process(subset, device=device)
+            ubm_gmm = copy.deepcopy(ubm.gmm)
+            warps = vtln.process(subset, ubm=ubm, group_by='speaker',
+                                 device=device)
+        finally:
+            fmllr.solve_warp_classes = solve
+        trained[device] = dict(
+            warps=warps, ubm=ubm_gmm, gmm=ubm.gmm, vtln=vtln,
+            stats=[a.cpu().numpy().astype(np.float64) for a in stats],
+            seconds=time.perf_counter() - start)
+
+    gpu, cpu = trained['cuda'], trained['cpu']
+    speakers = sorted(cpu['warps'])
+    equal = [spk for spk in speakers if gpu['warps'][spk] == cpu['warps'][spk]]
+    say(phase, f'cuda vs cpu, 16 utterances of 4 speakers, no randomness '
+        f'(training {gpu["seconds"]:.2f} s on the card, {cpu["seconds"]:.2f} '
+        f's on the CPU): warps {[gpu["warps"][s] for s in speakers]} and '
+        f'{[cpu["warps"][s] for s in speakers]}, {len(equal)} of '
+        f'{len(speakers)} equal')
+    step = config['vtln']['warp_step']
+    low = config['vtln']['min_warp']
+    gaps = []
+    for group, spk in enumerate(speakers):
+        if spk in equal:
+            continue
+        classes = [round((run['warps'][spk] - low) / step)
+                   for run in (gpu, cpu)]
+        for name, run in (('cuda', gpu), ('cpu', cpu)):
+            values = class_objective(
+                run['stats'], group, run['vtln'].lvtln.transforms,
+                config['vtln']['norm_type'], classes)
+            gaps.append((spk, name, abs(values[0] - values[1])
+                         / abs(values[1])))
+            say(phase, f'{spk}: warps {gpu["warps"][spk]} (cuda) and '
+                f'{cpu["warps"][spk]} (cpu), relative objective gap on the '
+                f'{name} run\'s statistics {gaps[-1][2]:.3g} (a tie under '
+                f'{TIE_TOL})')
+
+    def worst(a, b):
+        return float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max())
+
+    errors = {}
+    for stage in ('ubm', 'gmm'):
+        for field in ('weights', 'means', 'inv_vars'):
+            errors[f'{stage}.{field}'] = worst(
+                getattr(gpu[stage], field), getattr(cpu[stage], field))
+    base = gpu['vtln'].lvtln.transforms, cpu['vtln'].lvtln.transforms
+    raw = training_frames(config, subset, cmvn=False)
+    errors['base transforms on the frames'] = max(
+        action_gap(ours, ref, raw) for ours, ref in zip(*base))
+    normalized = training_frames(config, subset, cmvn=True)
+    same = [utt for utt in subset if utt.speaker in equal]
+    errors['speaker transforms on the frames'] = max(
+        [action_gap(gpu['vtln'].transforms[utt.name],
+                    cpu['vtln'].transforms[utt.name], normalized)
+         for utt in same] + [0.0])
+    say(phase, 'cuda vs cpu, max-abs (relative past 1): '
+        + ', '.join(f'{k} {v:.3g}' for k, v in errors.items())
+        + f'; the entries of the base transforms {worst(*base):.3g}, of '
+        'the speaker transforms ' + '{:.3g}'.format(max(
+            [worst(gpu['vtln'].transforms[utt.name],
+                   cpu['vtln'].transforms[utt.name]) for utt in same]
+            + [0.0])) + ' (the condition number of the unwarped frames\' '
+        f'covariance, which the base fit inverts: '
+        f'{np.linalg.cond(np.cov(raw, rowvar=False)):.3g})')
+    for spk, name, gap in gaps:
+        check(gap < TIE_TOL, f'{spk}: the warps are not tied on the {name} '
+              f'run: relative objective gap {gap:.3g}')
+    for name, err in errors.items():
+        check(err < MODEL_TOL, f'cuda vs cpu {name}: {err} >= {MODEL_TOL}')
+
+    same = Utterances([(u.name, u.audio_file, u.speaker) for u in same])
+    check(len(same) > 0, 'every speaker\'s warps differ between devices')
+    plain = copy.deepcopy(config)
+    del plain['vtln']
+    worst_feats, ties = cuda_against_cpu(
+        plain, 'mfcc', same, pitch_batched,
+        warps={spk: gpu['warps'][spk] for spk in equal})
+    say(phase, f'cuda vs cpu, the warped extraction of the {len(same)} '
+        f'utterances whose warps are equal: max-abs {worst_feats:.3g} < '
+        f'{SLICE_TOL} ({ties} with proven lag ties)')
+
+
 #: the port's profiler spans (torch.profiler.record_function)
 SPANS = ('pass1.dispatch', 'pass1.wait', 'batch.dispatch', 'batch.wait',
-         'batch.chunked', 'pass2', 'plp.rasta', 'plp.durbin')
+         'batch.chunked', 'pass2', 'plp.rasta', 'plp.durbin', 'ubm.frontend',
+         'ubm.init', 'ubm.em', 'vtln.moments', 'vtln.solve', 'vtln.gselect',
+         'vtln.rounds')
+RUN_SPAN = 'chip_smoke.run'
 
 
-def profile_layers(phase, config, utterances, wall_s):
+def print_parts(phase, prof, parts):
+    """The profiled run's wall split at the first start of each part's
+    span (host clock): the set-up before the first, each part up to the
+    next, the last up to the end of the run."""
+    from torch.autograd import DeviceType
+
+    events = sorted(
+        (e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+        if e.name in SPANS + (RUN_SPAN,) and e.device_type == DeviceType.CPU)
+    run = next((s, e) for s, e, name in events if name == RUN_SPAN)
+    marks, cursor = [('set-up', run[0])], run[0]
+    for label, span in parts:
+        found = next((s for s, _, name in events
+                      if name == span and s >= cursor), None)
+        check(found is not None, f'{phase}: no span {span} after {label}')
+        marks.append((label, found))
+        cursor = found
+    marks.append(('end', run[1]))
+    pieces = [(label, (marks[i + 1][1] - at) / 1e3)
+              for i, (label, at) in enumerate(marks[:-1])]
+    say(phase, f'profiled wall {(run[1] - run[0]) / 1e3:.1f} ms: ' + ', '.join(
+        f'{label} {ms:.1f} ms' for label, ms in pieces))
+
+
+def profile_layers(phase, config, utterances, wall_s, parts=None):
     """One more run under torch.profiler: device busy time by kernel,
     and for each span of the port its host time and the device time of
-    the kernels launched inside it."""
+    the kernels launched inside it; with ``parts``, the run's wall split
+    into stages (:func:`print_parts`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -968,9 +1309,10 @@ def profile_layers(phase, config, utterances, wall_s):
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
-        pipeline.extract_features(
-            copy.deepcopy(config), utterances, device='cuda')
-        torch.cuda.synchronize()
+        with torch.profiler.record_function(RUN_SPAN):
+            pipeline.extract_features(
+                copy.deepcopy(config), utterances, device='cuda')
+            torch.cuda.synchronize()
     averages = prof.key_averages()
     # the annotations appear twice: as host spans, whose device time
     # sums the kernels launched inside them, and as device-side user
@@ -982,7 +1324,7 @@ def profile_layers(phase, config, utterances, wall_s):
     kernels = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key)
          for e in averages if e.device_type == DeviceType.CUDA
-         and e.key not in SPANS),
+         and e.key not in SPANS + (RUN_SPAN,)),
         reverse=True)
     busy = sum(ms for ms, _, _ in kernels)
     phase = f'{phase} profile'
@@ -1000,6 +1342,8 @@ def profile_layers(phase, config, utterances, wall_s):
         'fft|radix', k[2], re.IGNORECASE)]
     for ms, count, key in shown:
         say(phase, f'{ms:9.3f} ms  x{count:<5d} {key[:90]}')
+    if parts:
+        print_parts(phase, prof, parts)
 
 
 def main():
@@ -1021,6 +1365,8 @@ def main():
         for name, count in counts.items():
             launches[name] += count
             errors[name] = max(errors[name], chunk_errors[name])
+        for name, count in vtln_slice(card, entries).items():
+            launches[name] += count
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -87,6 +87,25 @@ class Features:
             and np.array_equal(self.times, other.times)
             and np.array_equal(self.data, other.data))
 
+    def copy(self, dtype=None, subsample=None):
+        """Deep copy, with optional dtype conversion and frame
+        subsampling (every ``subsample``-th frame)."""
+        if subsample is None:
+            subsample = 1
+        elif not isinstance(subsample, int) or subsample <= 0:
+            raise ValueError(
+                f'subsample must be a strictly positive integer, '
+                f'it is: {subsample}')
+        data = self.data[::subsample]
+        times = self.times[::subsample]
+        if dtype:
+            data, times = data.astype(dtype), times.astype(dtype)
+        else:
+            data, times = data.copy(), times.copy()
+        return Features(
+            data, times, properties=copy_properties(self.properties),
+            validate=False)
+
     def is_valid(self):
         """True if :func:`validate` passes"""
         try:

@@ -2,9 +2,12 @@
 
 The port's own copy of ``shennong_tpu/features_collection.py`` (the
 methods the port calls): a dict of utterance name -> Features with
-save and load.
+save, load and VAD trimming.
 """
 
+import numpy as np
+
+from shennong_tpu_torch.features import Features
 from shennong_tpu_torch.logger import get_logger
 from shennong_tpu_torch.serializers import get_serializer
 
@@ -35,3 +38,20 @@ class FeaturesCollection(dict):
     def is_valid(self):
         """True if every features item in the collection is valid"""
         return all(feats.is_valid() for feats in self.values())
+
+    def trim(self, vad):
+        """Keep only the frames flagged True in per-utterance ``vad``
+        masks (bool arrays keyed like the collection)."""
+        if vad.keys() != self.keys():
+            raise ValueError('Vad keys are different from this keys.')
+        for key in vad:
+            if vad[key].dtype != np.dtype('bool'):
+                raise ValueError('Vad arrays must be arrays of bool.')
+            if vad[key].shape[0] != self[key].nframes:
+                raise ValueError(
+                    'Vad arrays length must be equal to the number of '
+                    'frames.')
+        return FeaturesCollection({
+            k: Features(self[k].data[vad[k]], self[k].times[vad[k]],
+                        properties=self[k].properties)
+            for k in self.keys()})

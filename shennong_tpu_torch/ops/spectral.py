@@ -1,4 +1,5 @@
-"""Batched spectrogram, filterbank, MFCC and frame-energy computers.
+"""Batched spectrogram, filterbank, MFCC (one warp, or every warp class
+at once) and frame-energy computers.
 
 Counterpart of :mod:`shennong_tpu.ops.spectral`: frame gather ->
 window processing -> rFFT -> power spectrum -> mel and DCT matmuls ->
@@ -186,6 +187,45 @@ def mfcc_batch(signals, nsamples, mel_weights, opts, nframes_max,
         first = feats[..., :1]
         if not opts.use_energy:
             first = first * _SQRT2  # C0 scaling for HTK
+        feats = torch.cat([feats[..., 1:], first], dim=-1)
+
+    return feats
+
+
+def mfcc_multi_warp_batch(signals, nsamples, mel_weights, opts,
+                          nframes_max, generator=None):
+    """MFCC for every VTLN warp class in one pass.
+
+    ``mel_weights`` is a [C, M, P] stack of warped mel banks: the
+    framing and the FFT run once and only the mel application fans out
+    over the classes (LVTLN base-transform training). Output
+    [C, B, nframes_max, num_ceps].
+    """
+    device = signals.device
+    power, log_energy = _power_and_energy(
+        signals, nsamples, opts, nframes_max, generator)
+
+    mel = torch.as_tensor(mel_weights, dtype=torch.float32, device=device)
+    log_mel = torch.log(torch.clamp_min(
+        torch.einsum('bfp,cmp->cbfm', power, mel), FLT_EPSILON))
+
+    dct = torch.as_tensor(
+        melmod.dct_matrix(opts.num_ceps, opts.mel.num_bins),
+        dtype=torch.float32, device=device)
+    feats = torch.einsum('cbfm,km->cbfk', log_mel, dct)
+
+    if opts.cepstral_lifter != 0.0:
+        feats = feats * torch.as_tensor(
+            melmod.lifter_coeffs(opts.cepstral_lifter, opts.num_ceps),
+            dtype=torch.float32, device=device)
+
+    if opts.use_energy:
+        feats[..., 0] = _floor_energy(log_energy, opts.energy_floor)
+
+    if opts.htk_compat:
+        first = feats[..., :1]
+        if not opts.use_energy:
+            first = first * _SQRT2
         feats = torch.cat([feats[..., 1:], first], dim=-1)
 
     return feats

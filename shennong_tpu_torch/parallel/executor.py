@@ -13,12 +13,16 @@ on host threads and uploaded as int16 from pinned memory
   on that event when it drains the batch, ``depth`` dispatches later.
 - :class:`BatchExecutor` runs one frame processor per sweep (the
   stage-wise pass 1, and ``process_all``), sending hour-scale
-  utterances through the processor's chunked extraction.
+  utterances through the processor's chunked extraction; for LVTLN
+  training it also extracts MFCCs at every warp class at once
+  (``process_all_classes``) or reduces them to the classes' mapping
+  moments on the device (``accumulate_lvtln_stats``).
 
 The host spans ``pass1.dispatch``/``pass1.wait`` (fused) and
 ``batch.dispatch``/``batch.wait`` (stage-wise) mark enqueuing a batch
 and blocking on its outputs, ``batch.chunked`` the whole chunked
-extraction of one hour-scale utterance; they are profiler annotations
+extraction of one hour-scale utterance, ``vtln.moments`` the warp-class
+moments of one batch; they are profiler annotations
 (:func:`torch.profiler.record_function`), which cost nothing
 measurable when no profiler runs.
 """
@@ -67,11 +71,16 @@ class FusedPipelineExecutor:
         Source of the dithers and the pitch noise, on ``device``. A
         fresh, randomly seeded one is made when a random stage is on
         and none is given.
+    signal_cache : SignalCache, optional
+        Replays the signal batches an earlier sweep over the same
+        utterances uploaded (VTLN training before the warped
+        extraction), instead of decoding and uploading them again.
     """
 
     def __init__(self, feat_proc, warps=None, energy_proc=None,
                  vad_proc=None, pitch_proc=None, pitch_post=None, *,
-                 device, batch_size=64, depth=2, generator=None):
+                 device, batch_size=64, depth=2, generator=None,
+                 signal_cache=None):
         self.feat_proc = feat_proc
         self.warps = warps
         self.energy_proc = energy_proc
@@ -82,6 +91,7 @@ class FusedPipelineExecutor:
         self.batch_size = int(batch_size)
         self.depth = max(1, int(depth))
         self.generator = generator
+        self.signal_cache = signal_cache
 
     def _static_opts(self):
         """The per-run static configuration of the fused program."""
@@ -220,9 +230,9 @@ class FusedPipelineExecutor:
                     pitches[name] = utt_pitch
 
         inflight = collections.deque()
-        for names, signals, nsamples, _ in stream.stream_batches(
-                utterances, self.batch_size, pin_memory=cuda,
-                depth=self.depth):
+        for names, signals, nsamples, _ in stream.stream_source(
+                self.signal_cache, utterances, self.batch_size,
+                pin_memory=cuda, depth=self.depth):
             inflight.append(dispatch(names, signals, nsamples))
             if len(inflight) > self.depth:
                 drain(*inflight.popleft())
@@ -390,6 +400,157 @@ class BatchExecutor:
                     data, proc.times(data.shape[0]),
                     properties=_properties(proc, vtln_warp, utt_name))
         return collection
+
+    def _dither_generator(self):
+        """The generator of the processor's dither, or None."""
+        if self.processor.dither == 0:
+            return None
+        if self.generator is not None:
+            return self.generator
+        return fresh_generator(self.device)
+
+    def process_all_classes(self, utterances, class_warps):
+        """MFCCs of every utterance at every VTLN warp class.
+
+        The framing and the FFT run once per batch and only the mel
+        bank fans out over the ``class_warps``
+        (:func:`shennong_tpu_torch.ops.spectral.mfcc_multi_warp_batch`);
+        utterances past ``AUTO_CHUNK_FRAMES`` take chunked extraction,
+        once per class. Returns one FeaturesCollection per class.
+        """
+        proc = self.processor
+        if proc.name != 'mfcc':
+            raise ValueError(
+                'multi-class warping requires an MFCC processor, '
+                f'got {proc.name}')
+        utterances = list(utterances)
+        _check_sample_rates(utterances, proc)
+        generator = self._dither_generator()
+        collections = [FeaturesCollection() for _ in class_warps]
+
+        limit = proc.AUTO_CHUNK_FRAMES
+        if limit:
+            regular = []
+            for utt in utterances:
+                frames = proc.output_frames(
+                    int(utt.duration * float(proc.sample_rate)))
+                if frames > limit:
+                    audio = utt.load_audio()
+                    with torch.profiler.record_function('batch.chunked'):
+                        for c, warp in enumerate(class_warps):
+                            collections[c][utt.name] = proc.process_chunked(
+                                audio, vtln_warp=warp, device=self.device,
+                                generator=generator)
+                else:
+                    regular.append(utt)
+            utterances = regular
+        if not utterances:
+            return collections
+
+        mel_weights = torch.as_tensor(
+            np.stack([proc.mel_weights(w) for w in class_warps]),
+            dtype=torch.float32, device=self.device)
+        frame_opts = proc.frame_options()
+        for names, signals, nsamples, _ in stream.stream_batches(
+                utterances, self.batch_size,
+                pin_memory=self.device.type == 'cuda'):
+            with torch.profiler.record_function('batch.dispatch'):
+                feats = spectral.mfcc_multi_warp_batch(
+                    signals.to(self.device, non_blocking=True).to(
+                        torch.float32),
+                    torch.from_numpy(nsamples).to(self.device),
+                    mel_weights, proc.options(),
+                    num_frames(signals.shape[1], frame_opts),
+                    generator=generator)
+            with torch.profiler.record_function('batch.wait'):
+                feats = feats.cpu().numpy()
+            for row, utt_name in enumerate(names):
+                nframes = num_frames(int(nsamples[row]), frame_opts)
+                for c, warp in enumerate(class_warps):
+                    collections[c][utt_name] = Features(
+                        np.ascontiguousarray(feats[c, row, :nframes]),
+                        proc.times(nframes),
+                        properties=proc.get_properties(vtln_warp=warp))
+        return collections
+
+    def accumulate_lvtln_stats(self, utterances, class_warps, keep,
+                               delta_order=None, delta_window=None,
+                               signal_cache=None):
+        """Least-squares mapping statistics of every VTLN warp class.
+
+        ``keep`` maps utterance names to per-frame float weights (the
+        VAD-and-subsample selection). Each signal batch runs
+        :func:`shennong_tpu_torch.ops.fmllr.warp_class_mapping_moments`
+        on the device, under the profiler span ``vtln.moments``; the
+        warped features never reach the host, and the moments of all
+        batches are fetched once at the end.
+
+        Returns the list of per-batch moment tuples (numpy float32) for
+        :func:`shennong_tpu_torch.ops.fmllr.solve_mapping_from_moments`.
+        """
+        from shennong_tpu_torch.ops import fmllr as fmllr_ops
+
+        proc = self.processor
+        if proc.name != 'mfcc':
+            raise ValueError(
+                'LVTLN statistics require an MFCC processor, '
+                f'got {proc.name}')
+        utterances = list(utterances)
+        _check_sample_rates(utterances, proc)
+        generator = self._dither_generator()
+
+        mel_weights = torch.as_tensor(
+            np.stack([proc.mel_weights(w) for w in class_warps]
+                     + [proc.mel_weights(1.0)]),
+            dtype=torch.float32, device=self.device)
+
+        # the moment program holds the (C+1)-way warped features
+        # [C+1, rows, T, D(+deltas)] about twice: size the batch rows to
+        # a ~2 GB footprint, so long utterances shrink the batch
+        frame_opts = proc.frame_options()
+        max_frames = max(
+            proc.output_frames(int(utt.duration * float(proc.sample_rate)))
+            for utt in utterances)
+        dim = proc.ndims * (
+            delta_order + 1 if delta_order is not None else 1)
+        bytes_per_row = (len(class_warps) + 1) * max_frames * dim * 4 * 2
+        batch_rows = min(64, max(1, int((2 << 30) // max(bytes_per_row, 1))))
+
+        source = stream.stream_source(
+            signal_cache, utterances, batch_rows,
+            pin_memory=self.device.type == 'cuda')
+        parts = []
+        for names, signals, nsamples, _ in source:
+            with torch.profiler.record_function('vtln.moments'):
+                nframes_max = num_frames(signals.shape[1], frame_opts)
+                nframes = np.ones(signals.shape[0], dtype=np.int32)
+                weights = np.zeros(
+                    (signals.shape[0], nframes_max), dtype=np.float32)
+                for row, name in enumerate(names):
+                    count = num_frames(int(nsamples[row]), frame_opts)
+                    nframes[row] = count
+                    weights[row, :count] = keep[name][:count]
+                parts.append(fmllr_ops.warp_class_mapping_moments(
+                    signals.to(self.device, non_blocking=True).to(
+                        torch.float32),
+                    torch.from_numpy(nsamples).to(self.device),
+                    torch.from_numpy(nframes).to(self.device),
+                    mel_weights, torch.from_numpy(weights).to(self.device),
+                    proc.options(), nframes_max, delta_order=delta_order,
+                    delta_window=delta_window, generator=generator))
+        # one fetch for every batch's moments
+        shapes = [m.shape for m in parts[0]]
+        packed = torch.cat(
+            [m.reshape(-1) for batch in parts for m in batch]).cpu().numpy()
+        moments, cursor = [], 0
+        for _ in parts:
+            batch = []
+            for shape in shapes:
+                size = int(np.prod(shape))
+                batch.append(packed[cursor:cursor + size].reshape(shape))
+                cursor += size
+            moments.append(tuple(batch))
+        return moments
 
     def _run_batch(self, names, signals, nsamples, vtln_warp,
                    generator=None):

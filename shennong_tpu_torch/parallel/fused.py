@@ -1,4 +1,5 @@
-"""The pipeline's pass 1 as one program per padded utterance batch.
+"""The pipeline's pass 1, and the GMM-training front-end, as one
+program per padded utterance batch.
 
 Counterpart of :func:`shennong_tpu.parallel.fused.pass_one_program`:
 everything pass 1 needs from a padded signal batch, computed on one
@@ -99,3 +100,56 @@ def pass_one_program(signals, nsamples, mel_weights, equal_loudness, kind,
             raw_pitch, pitch_frames, post_opts, noise=noise)
 
     return out
+
+
+def ubm_frontend_program(signals, nsamples, mel_weights, mfcc_opts,
+                         nframes_max, delta_order, delta_window, vad_opts,
+                         cmvn_opts, subsample, generator=None):
+    """The UBM-GMM training front-end of one signal batch, on its
+    device.
+
+    Counterpart of :func:`shennong_tpu.parallel.fused.ubm_frontend_program`:
+    MFCC, the appended deltas, the energy-VAD decisions on the energy
+    column, sliding-window CMVN, and the two frame-selection weights
+    (voiced frames for the initialization, voiced-and-subsampled frames
+    for the main EM, Kaldi's trim-then-every-Nth-row), with no host
+    round trip.
+
+    ``vad_opts`` is (threshold, mean_scale, context, proportion),
+    ``cmvn_opts`` (center, window, min_window, normalize_variance) or
+    None, ``delta_order`` None for no deltas.
+
+    Returns (normalized feats [B, F, D'], w_init [B, F] float32, w_em
+    [B, F] float32, voiced [] float32 -- the batch's voiced count).
+    """
+    signals = signals.to(torch.float32)
+    feats = spectral.mfcc_batch(
+        signals, nsamples, mel_weights, mfcc_opts, nframes_max,
+        generator=generator)
+    nframes = frame_counts(nsamples, mfcc_opts.frame)
+
+    log_energy = feats[..., 0]
+    if delta_order is not None:
+        feats = postops.compute_deltas(
+            feats, nframes, order=delta_order, window=delta_window)
+
+    threshold, mean_scale, context, proportion = vad_opts
+    vad = postops.compute_vad_energy(
+        log_energy, nframes, energy_threshold=threshold,
+        energy_mean_scale=mean_scale, frames_context=context,
+        proportion_threshold=proportion)
+
+    if cmvn_opts is not None:
+        center, window, min_window, normalize_variance = cmvn_opts
+        feats = postops.sliding_window_cmvn(
+            feats, nframes, center=center, cmn_window=window,
+            min_window=min_window, normalize_variance=normalize_variance)
+
+    t = torch.arange(feats.shape[1], device=feats.device)[None, :]
+    voiced = (t < nframes[:, None]) & (vad > 0)
+    w_init = voiced.to(torch.float32)
+    # per-utterance voiced rank: trim(vad) then copy(subsample=N) keeps
+    # every Nth row of each trimmed utterance
+    rank = torch.cumsum(w_init, dim=1) - 1.0
+    w_em = w_init * (torch.remainder(rank, float(subsample)) == 0)
+    return feats, w_init, w_em, w_init.sum()

@@ -4,8 +4,15 @@ Counterpart of :mod:`shennong_tpu.pipeline` for the configurations
 ported so far: spectrogram, filterbank, MFCC or PLP (with or without
 RASTA) features with optional Kaldi pitch, CMVN (with the energy VAD)
 and deltas, on utterances of any length, with optional precomputed
-VTLN warps, over corpora of one or several sample rates. Bottleneck
-features, CREPE pitch and a ``vtln`` section raise NotImplementedError.
+VTLN warps or a ``vtln`` section that trains them (a UBM-GMM and
+LVTLN transforms, :class:`shennong_tpu_torch.processor.vtln.VtlnProcessor`),
+over corpora of one or several sample rates. Bottleneck features and
+CREPE pitch raise NotImplementedError.
+
+With a ``vtln`` section, one
+:class:`~shennong_tpu_torch.parallel.stream.SignalCache` spans the VTLN
+training (the UBM front-end, the warp-class moments) and the warped
+extraction of pass 1, so the corpus uploads once.
 
 :func:`extract_features` runs in two passes and picks pass 1 up front,
 from the sample rates and the frame counts, as the reference does:
@@ -154,11 +161,13 @@ def extract_features(configuration, utterances, warps=None, *, device,
         Precomputed VTLN warps indexed by speaker or by utterance (not
         with spectrogram features, nor with a 'vtln' config section).
     device : str or torch.device
-        Where pass 1 runs ('cuda', 'cuda:1', 'cpu', ...).
+        Where pass 1, and the VTLN training of a 'vtln' section, run
+        ('cuda', 'cuda:1', 'cpu', ...).
     generator : torch.Generator, optional
         Source of the dithers and the pitch noise, on ``device``: every
         stage, batch and chunk draws from it in turn. A fresh, randomly
-        seeded one when None.
+        seeded one when None. The VTLN training's own random draws (the
+        UBM's initial frames and splits) come from its ``seed``.
     log : logging.Logger, optional
 
     Returns
@@ -171,14 +180,17 @@ def extract_features(configuration, utterances, warps=None, *, device,
         utterances.format(type=str))
     if warps:
         warps = _init_warps(warps, config, utterances, log)
-    if 'vtln' in config:
-        raise NotImplementedError('VTLN is not yet ported')
     if generator is None:
         generator = fresh_generator(device)
 
     manager = PipelineManager(config, utterances, log=log)
+    cache = None
     if warps:
         manager.warps = warps
+    elif 'vtln' in config:
+        cache = SignalCache(device=device)
+        manager.warps = _train_warps(
+            manager, utterances, device, generator, cache)
     rates = set(
         meta.sample_rate for meta in manager.audio_metadata.values())
     utterances = list(utterances)
@@ -189,13 +201,152 @@ def extract_features(configuration, utterances, warps=None, *, device,
             _extract_pass_one(utt, manager, device, generator, log)
             for utt in utterances]
     elif _fits_fused(manager, utterances):
-        return _fused_extract(manager, utterances, device, generator, log)
+        return _fused_extract(
+            manager, utterances, device, generator, log, cache)
     else:
         triplets = _stagewise_pass_one(
-            manager, utterances, device, generator, log)
+            manager, utterances, device, generator, log, cache)
     results = _pass_two(manager, triplets, log)
     return FeaturesCollection(
         {utt.name: results[utt.name] for utt in utterances})
+
+
+def _train_warps(manager, utterances, device, generator, cache):
+    """The warps of the config's ``vtln`` section, by utterance,
+    trained on ``device`` over the signal cache ``cache``."""
+    vtln = manager.make('vtln')
+    vtln._signal_cache = cache
+    try:
+        return vtln.process(utterances, device=device, generator=generator)
+    finally:
+        vtln.__dict__.pop('_signal_cache', None)
+
+
+def _warp_classes_manager(configuration, utterances, log):
+    """(manager, sample rates, utterances list) of a VTLN-training
+    features configuration."""
+    config = init_config(configuration, log=log)
+    manager = PipelineManager(config, utterances, log=log)
+    rates = set(
+        meta.sample_rate for meta in manager.audio_metadata.values())
+    return manager, rates, list(utterances)
+
+
+def _with_deltas(manager, collection):
+    """``collection`` with its deltas appended when the configuration
+    has a delta section (computed on the host)."""
+    if 'delta' not in manager.config:
+        return collection
+    delta = manager.make('delta')
+    names = list(collection.keys())
+    outputs = compute_deltas_host(
+        [collection[name].data for name in names],
+        order=delta.order, window=delta.window)
+    return FeaturesCollection({
+        name: Features(
+            out.astype(collection[name].dtype), collection[name].times,
+            delta.get_properties(collection[name]))
+        for name, out in zip(names, outputs)})
+
+
+def extract_features_warp(configuration, utterances, warp, log, *, device,
+                          generator=None):
+    """Features (and their deltas) of every utterance at one global
+    VTLN warp, with no CMVN: the per-warp feature sets of VTLN
+    training. One sample rate runs through
+    :class:`~shennong_tpu_torch.parallel.executor.BatchExecutor`, several
+    utterance by utterance."""
+    manager, rates, utterances = _warp_classes_manager(
+        configuration, utterances, log)
+    if len(rates) == 1:
+        proc = manager.make('features', utterances[0])
+        features = BatchExecutor(
+            proc, device=device, generator=generator).process_all(
+                utterances,
+                vtln_warp={utt.name: float(warp) for utt in utterances})
+        return _with_deltas(manager, features)
+
+    features = FeaturesCollection()
+    for utterance in utterances:
+        name, feats = _process_one(
+            utterance, manager, log, warp, device=device,
+            generator=generator)
+        features[name] = feats
+    return features
+
+
+def extract_features_warp_classes(configuration, utterances, class_warps,
+                                  log, *, device, generator=None):
+    """MFCC features (and their deltas) of every utterance at every
+    VTLN warp class, one FeaturesCollection per class.
+
+    A single-rate MFCC configuration frames and transforms each batch
+    once and fans only the mel bank out over the classes
+    (:meth:`BatchExecutor.process_all_classes`); other configurations
+    take :func:`extract_features_warp` once per class.
+    """
+    manager, rates, utterances = _warp_classes_manager(
+        configuration, utterances, log)
+    if manager.features == 'mfcc' and len(rates) == 1:
+        proc = manager.make('features', utterances[0])
+        collections = BatchExecutor(
+            proc, device=device, generator=generator).process_all_classes(
+                utterances, [float(w) for w in class_warps])
+        return [_with_deltas(manager, c) for c in collections]
+    return [
+        extract_features_warp(
+            configuration, utterances, warp, log, device=device,
+            generator=generator)
+        for warp in class_warps]
+
+
+def accumulate_warp_mapping_stats(configuration, utterances, class_warps,
+                                  keep, log, *, device, generator=None,
+                                  signal_cache=None):
+    """The least-squares moments of the LVTLN base-transform training,
+    reduced on ``device`` (:meth:`BatchExecutor.accumulate_lvtln_stats`):
+    the warped features of the classes never reach the host. ``keep``
+    maps utterance names to per-frame selection weights (VAD and
+    subsampling).
+
+    Returns the per-batch moments for
+    :func:`shennong_tpu_torch.ops.fmllr.solve_mapping_from_moments`, or
+    None when the configuration is not single-rate MFCC with no
+    utterance past ``AUTO_CHUNK_FRAMES`` (the caller then materializes
+    the warped collections).
+    """
+    manager, rates, utterances = _warp_classes_manager(
+        configuration, utterances, log)
+    if manager.features != 'mfcc' or len(rates) != 1:
+        return None
+    proc = manager.make('features', utterances[0])
+    limit = proc.AUTO_CHUNK_FRAMES
+    if limit and any(
+            proc.output_frames(int(utt.duration * float(proc.sample_rate)))
+            > limit for utt in utterances):
+        return None
+
+    delta_order = delta_window = None
+    if 'delta' in manager.config:
+        delta = manager.make('delta')
+        delta_order, delta_window = delta.order, delta.window
+    return BatchExecutor(
+        proc, device=device, generator=generator).accumulate_lvtln_stats(
+            utterances, [float(w) for w in class_warps], keep,
+            delta_order=delta_order, delta_window=delta_window,
+            signal_cache=signal_cache)
+
+
+def _process_one(utterance, manager, log, warp, *, device, generator):
+    """One utterance's features (and deltas) at an explicit warp, with
+    no CMVN (VTLN training over several sample rates)."""
+    log.debug('%s: extract %s', utterance.name, manager.features)
+    features = manager.make('features', utterance).process(
+        manager.get_audio(utterance), vtln_warp=warp, device=device,
+        generator=generator)
+    if 'delta' in manager.config:
+        features = manager.make('delta').process(features, device=device)
+    return utterance.name, features
 
 
 def _init_warps(warps, config, utterances, log):
@@ -257,9 +408,10 @@ def _with_audio_properties(manager, utterance, features):
     features.properties['audio']['duration'] = utterance.duration
 
 
-def _fused_extract(manager, utterances, device, generator, log):
+def _fused_extract(manager, utterances, device, generator, log, cache):
     """The fused pass 1, with each CMVN group's pass 2 as soon as the
-    group has landed."""
+    group has landed; ``cache`` replays the signals VTLN training
+    uploaded, or is None."""
     config = manager.config
     first = utterances[0]
     with_vad = 'cmvn' in config and config['cmvn']['with_vad']
@@ -271,7 +423,7 @@ def _fused_extract(manager, utterances, device, generator, log):
         vad_proc=manager.make('vad') if with_vad else None,
         pitch_proc=manager.make('pitch', first) if with_pitch else None,
         pitch_post=manager.make('pitch_post') if with_pitch else None,
-        device=device, generator=generator)
+        device=device, generator=generator, signal_cache=cache)
 
     with_cmvn = 'cmvn' in config
     by_name = {utt.name: utt for utt in utterances}
@@ -312,7 +464,8 @@ def _fused_extract(manager, utterances, device, generator, log):
         {utt.name: results[utt.name] for utt in utterances})
 
 
-def _stagewise_pass_one(manager, utterances, device, generator, log):
+def _stagewise_pass_one(manager, utterances, device, generator, log,
+                        cache):
     """Pass 1 as one :class:`BatchExecutor` sweep per stage, the
     hour-scale utterances in chunks. Returns the (utterance, features,
     pitch-or-None) triplets, the CMVN statistics accumulated."""
@@ -322,7 +475,8 @@ def _stagewise_pass_one(manager, utterances, device, generator, log):
     with_pitch = 'pitch' in config
     # the sweeps stream the same audio: the first uploads it, the
     # others replay it
-    cache = SignalCache(device=device) if with_vad or with_pitch else None
+    if cache is None and (with_vad or with_pitch):
+        cache = SignalCache(device=device)
 
     log.debug('stage-wise pass 1: %s', manager.features)
     feats = BatchExecutor(

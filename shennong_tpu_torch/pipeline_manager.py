@@ -21,7 +21,7 @@ from shennong_tpu_torch.ops.postops import accumulate_cmvn_stats
 #: the config sections whose processors are ported
 PORTED = ('spectrogram', 'filterbank', 'mfcc', 'plp', 'energy',
           'kaldi_pitch', 'kaldi_pitch_post', 'cmvn', 'sliding_window_cmvn',
-          'delta', 'vad')
+          'delta', 'vad', 'ubm', 'vtln')
 
 
 class PipelineManager:
@@ -207,6 +207,7 @@ class PipelineManager:
                 'vad', dict(self.config.get('cmvn', {}).get('vad', {})),
                 set()),
             'delta': ('delta', dict(self.config.get('delta', {})), set()),
+            'vtln': ('vtln', dict(self.config.get('vtln', {})), set()),
             'pitch': (
                 f'{pitch_kind}_pitch',
                 {k: v for k, v in self.config.get('pitch', {}).items()
@@ -225,7 +226,8 @@ class PipelineManager:
     def make(self, kind, utterance=None):
         """Build the configured processor of one pipeline stage.
 
-        ``kind`` is one of features/energy/vad/delta/pitch/pitch_post;
+        ``kind`` is one of features/energy/vad/delta/vtln/pitch/
+        pitch_post;
         ``utterance`` supplies the sample rate for the stages that need
         one.
         """

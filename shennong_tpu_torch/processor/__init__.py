@@ -1,7 +1,8 @@
 """Speech feature extraction processors (Audio -> Features).
 
 The processors ported so far: spectrogram, filterbank, MFCC, PLP
-(with RASTA), frame energy and Kaldi pitch with its post-processor.
+(with RASTA), frame energy, Kaldi pitch with its post-processor, and
+the UBM-GMM and VTLN trainers.
 Imports are lazy (PEP 562), as in :mod:`shennong_tpu.processor`.
 """
 
@@ -13,6 +14,8 @@ _REGISTRY = {
     'EnergyProcessor': 'energy',
     'KaldiPitchProcessor': 'pitch_kaldi',
     'KaldiPitchPostProcessor': 'pitch_kaldi',
+    'DiagUbmProcessor': 'ubm',
+    'VtlnProcessor': 'vtln',
 }
 
 __all__ = sorted(_REGISTRY)

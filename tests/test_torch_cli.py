@@ -138,3 +138,60 @@ def test_module_runs_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     with open(config_file) as stream:
         assert sorted(yaml.safe_load(stream)) == ['cmvn', 'spectrogram']
+
+
+@pytest.mark.parametrize('vtln', ['simple', 'full'])
+def test_config_vtln(monkeypatch, capsys, vtln):
+    """``config mfcc --vtln``: the vtln section and its ubm, as the JAX
+    package writes them."""
+    run_cli(monkeypatch, 'config', 'mfcc', '--pitch', 'kaldi', '--cmvn',
+            '--delta', '--vtln', vtln)
+    ours = capsys.readouterr().out
+    assert ours == jpipeline.get_default_config(
+        'mfcc', to_yaml=True, with_pitch='kaldi', with_cmvn=True,
+        with_delta=True, with_vtln=vtln)
+    config = yaml.safe_load(ours)
+    assert config['vtln']['ubm']['num_gauss'] == 64
+    if vtln == 'simple':
+        assert config['vtln']['features'] == 'default'
+        assert config['vtln']['ubm']['features'] == 'default'
+    else:
+        assert config['vtln']['features']['delta']['window'] == 3
+
+
+def test_extract_vtln(monkeypatch, tmp_path, corpus):
+    """``extract --device cpu`` of a vtln configuration with a tiny UBM,
+    equal to the pipeline run in-process."""
+    defaults = list(energy.EnergyProcessor.__init__.__defaults__)
+    defaults[3] = 0.0  # the energy VAD's dither
+    monkeypatch.setattr(
+        energy.EnergyProcessor.__init__, '__defaults__', tuple(defaults))
+    config_file = str(tmp_path / 'config.yaml')
+    run_cli(monkeypatch, 'config', 'mfcc', '--cmvn', '--delta', '--vtln',
+            'full', '-o', config_file)
+    with open(config_file) as stream:
+        config = yaml.safe_load(stream)
+    config['mfcc']['dither'] = 0
+    vtln = config['vtln']
+    vtln['features']['mfcc']['dither'] = 0
+    vtln['num_iters'] = 2
+    vtln['ubm'].update(num_gauss=4, num_iters=1, num_iters_init=2,
+                       num_frames=2000)
+    vtln['ubm']['features']['mfcc']['dither'] = 0
+    with open(config_file, 'w') as stream:
+        yaml.safe_dump(config, stream)
+
+    output = str(tmp_path / 'features.npz')
+    run_cli(monkeypatch, 'extract', '-q', '--device', 'cpu', config_file,
+            corpus, output)
+    saved = FeaturesCollection.load(output)
+    ref = pipeline.extract_features(
+        config_file, Utterances.load(corpus), device='cpu')
+    assert sorted(saved.keys()) == sorted(ref.keys()) == ['real', 'u0', 'u1']
+    for name in ref:
+        assert saved[name].shape == ref[name].shape
+        assert saved[name].shape[1] == 39
+        assert np.array_equal(saved[name].data, ref[name].data)
+        warp = ref[name].properties['mfcc']['vtln_warp']
+        assert saved[name].properties['mfcc']['vtln_warp'] == warp
+        assert 0.85 <= warp <= 1.25

@@ -16,7 +16,13 @@ random source at 0). The Viterbi kernels are also held at the chunk
 shape of hour-scale pitch, [8, 8400, 417]; chunked extraction against
 whole-signal extraction on the card (1e-4, RASTA-PLP 1e-3, pitch lags
 equal or proven ties); and the stage-wise path on the card against
-the CPU (1e-3).
+the CPU (1e-3). The GMM and fMLLR device operations of the VTLN
+training are held against their CPU runs (1e-5 relative, 1e-4
+absolute; the iterated EM and LVTLN rounds 1e-4 relative, 1e-3
+absolute), a gaussian selection that differs being a near-tie
+(log-likelihoods within 1e-5 relative), the warp classes equal; and the
+config-4 slice (a ``vtln`` section) on the card against the CPU (warps
+equal, features 1e-3).
 """
 
 import copy
@@ -31,7 +37,7 @@ import torch
 from shennong_tpu_torch.audio import Audio
 from shennong_tpu_torch.utterances import Utterances
 from shennong_tpu_torch import pipeline
-from shennong_tpu_torch.ops import cuda_viterbi, plp, postops
+from shennong_tpu_torch.ops import cuda_viterbi, fmllr, gmm, plp, postops
 from shennong_tpu_torch.processor import energy
 from shennong_tpu_torch.processor.energy import EnergyProcessor
 from shennong_tpu_torch.processor.filterbank import FilterbankProcessor
@@ -270,4 +276,203 @@ def test_stagewise_slice_matches_cpu(cuda_device, corpus, monkeypatch):
         copy.deepcopy(config), corpus, warps=warps, device='cpu')
     for name in on_cpu:
         assert on_cuda[name].shape == on_cpu[name].shape
+        assert np.abs(on_cuda[name].data - on_cpu[name].data).max() < 1e-3
+
+
+def gmm_inputs(n=3000, dim=39, num_gauss=64, padding=4, seed=0):
+    """Frames [n, dim] and a random diagonal GMM (float32 numpy) whose
+    last ``padding`` components have weight 0 (the init loop's shape
+    padding)."""
+    rng = np.random.RandomState(seed)
+    weights = rng.rand(num_gauss) + 0.1
+    weights[-padding:] = 0
+    weights /= weights.sum()
+    means = rng.randn(num_gauss, dim)
+    inv_vars = 1.0 / (0.3 + rng.rand(num_gauss, dim))
+    feats = rng.randn(n, dim) * 1.3
+    return tuple(a.astype(np.float32)
+                 for a in (feats, weights, means, inv_vars))
+
+
+def on(device, arrays, dtype=torch.float32):
+    """numpy arrays as tensors on ``device``, the float ones in
+    ``dtype``."""
+    return [torch.from_numpy(a).to(device, dtype if a.dtype.kind == 'f'
+                                   else None) for a in arrays]
+
+
+def assert_selection_near_tie(ours, ref, loglikes):
+    """Equal selections, or, where a frame's differ, near-ties: the
+    log-likelihoods of the two picks at each rank within 1e-5
+    relative."""
+    differ = np.flatnonzero((ours != ref).any(axis=1))
+    for row in differ:
+        a = loglikes[row, ours[row]]
+        b = loglikes[row, ref[row]]
+        assert np.all(np.abs(a - b) <= 1e-5 * np.abs(b)), row
+    print(f'{differ.size} of {len(ours)} frames select differently '
+          '(near-ties)')
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_gmm_ops_match_cpu(cuda_device, dtype):
+    """In float32 as the JAX package, and in float64 (GMM_DTYPE) as the
+    port's trainers call them."""
+    feats, weights, means, inv_vars = gmm_inputs()
+    model = (weights, means, inv_vars)
+    fweights = (np.arange(len(feats)) % 3 != 0).astype(np.float32)
+
+    def both(function, arrays, *extra):
+        return tuple(function(*on(device, arrays, dtype), *extra)
+                     for device in (cuda_device, 'cpu'))
+
+    def close(ours, ref, name, rtol=1e-5, atol=1e-4):
+        for a, b in zip(*[o if isinstance(o, tuple) else (o,)
+                          for o in (ours, ref)]):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=rtol, atol=atol, err_msg=name)
+
+    cpu_loglikes = gmm.log_likelihoods(
+        *on('cpu', (feats,) + model, dtype)).numpy()
+    for name, args in (
+            ('gconsts', model),
+            ('log_likelihoods', (feats,) + model),
+            ('accumulate_stats', (feats, fweights) + model),
+            ('em_step', (feats, fweights) + model)):
+        close(*both(getattr(gmm, name), args), name)
+
+    ours, ref = both(gmm.gaussian_selection, (feats,) + model, 15)
+    close(ours[0], ref[0], 'gaussian_selection')
+    assert_selection_near_tie(ours[1].cpu().numpy(), ref[1].numpy(),
+                              cpu_loglikes)
+    preselect = ref[1].numpy()
+    ours, ref = both(gmm.gaussian_selection_preselect,
+                     (feats, preselect) + model, 5)
+    close(ours[0], ref[0], 'gaussian_selection_preselect')
+    assert_selection_near_tie(ours[1].cpu().numpy(), ref[1].numpy(),
+                              cpu_loglikes)
+    close(*both(gmm.posteriors_preselect, (feats, preselect) + model),
+          'posteriors_preselect')
+
+    # four EM iterations: padding components stay dead on both devices
+    ours, ref = both(gmm.em_steps, (feats, fweights) + model, 4)
+    assert (ours[1][-4:] == 0).all() and (ref[1][-4:] == 0).all()
+    close(ours, ref, 'em_steps', rtol=1e-4, atol=1e-3)
+
+
+def lvtln_inputs(n=6000, dim=39, num_gauss=64, k=15, groups=16,
+                 classes=41, seed=3):
+    """The arguments of ``lvtln_rounds``, float32/int32 numpy: frames
+    with padding rows of weight 0, a gaussian selection, base
+    transforms near the identity (the middle class the identity) and
+    the warp grid."""
+    feats, weights, means, inv_vars = gmm_inputs(n, dim, num_gauss, 1, seed)
+    weights = np.full(num_gauss, 1.0 / num_gauss, np.float32)
+    rng = np.random.RandomState(seed)
+    feats[-100:] = 0.0
+    fweights = np.ones(n, np.float32)
+    fweights[-100:] = 0.0
+    gid = rng.randint(0, groups, n).astype(np.int32)
+    gsel = gmm.top_k(gmm.log_likelihoods(*[torch.from_numpy(a) for a in (
+        feats, weights, means, inv_vars)]), k).numpy().astype(np.int32)
+    base = np.eye(dim)[None] + rng.randn(classes, dim, dim) * 0.02
+    base[classes // 2] = np.eye(dim)
+    warps = np.linspace(0.85, 1.25, classes)
+    return (feats, fweights, gid, gsel, base.astype(np.float32),
+            warps.astype(np.float32), weights, means, inv_vars)
+
+
+def test_fmllr_ops_match_cpu(cuda_device):
+    args = lvtln_inputs()
+    feats, _, gid, gsel = args[:4]
+    post = np.random.RandomState(4).rand(*gsel.shape).astype(np.float32)
+    post /= post.sum(axis=1, keepdims=True)
+    stats_args = (feats, gsel, post, gid, args[7], args[8])
+    ours = fmllr.fmllr_stats_groups(*on(cuda_device, stats_args), 16)
+    ref = fmllr.fmllr_stats_groups(*on('cpu', stats_args), 16)
+    for a, b in zip(ours, ref):
+        scale = max(1.0, float(b.abs().max()))
+        np.testing.assert_allclose(a.cpu().numpy() / scale,
+                                   b.numpy() / scale, rtol=1e-5, atol=1e-4)
+
+    base, warps = args[4], args[5]
+    sign, logdet = np.linalg.slogdet(base.astype(np.float64))
+    solve_args = tuple(b.numpy() for b in ref) + (
+        base, warps, sign > 0, logdet.astype(np.float32))
+    for norm_type in ('offset', 'diag'):
+        ours = fmllr.solve_warp_classes(
+            *on(cuda_device, solve_args), norm_type=norm_type,
+            default_class=20)
+        theirs = fmllr.solve_warp_classes(
+            *on('cpu', solve_args), norm_type=norm_type, default_class=20)
+        assert torch.equal(ours[2].cpu(), theirs[2]), norm_type
+        for a, b in zip(ours, theirs):
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                       rtol=1e-5, atol=1e-4, err_msg=norm_type)
+
+    signals = np.zeros((3, 16000), dtype=np.int16)
+    nsamples = np.array([16000, 11200, 7000], dtype=np.int32)
+    audio = Audio.load(REAL_WAV)
+    for row, count in enumerate(nsamples):
+        signals[row, :count] = audio.data[3000 * row:3000 * row + count]
+    proc = MfccProcessor(dither=0)
+    mel = np.stack([proc.mel_weights(w) for w in (0.9, 1.0, 1.1, 1.0)])
+    nframes_max = proc.output_frames(signals.shape[1])
+    nframes = np.array([proc.output_frames(int(n)) for n in nsamples],
+                       dtype=np.int32)
+    select = ((np.random.RandomState(5).rand(3, nframes_max) > 0.4)
+              & (np.arange(nframes_max) < nframes[:, None])).astype(
+                  np.float32)
+    moments = {
+        device: fmllr.warp_class_mapping_moments(
+            *on(device, (signals.astype(np.float32), nsamples, nframes,
+                         mel.astype(np.float32), select)),
+            proc.options(), nframes_max, 2, 3)
+        for device in (cuda_device, 'cpu')}
+    for a, b in zip(moments[cuda_device], moments['cpu']):
+        scale = max(1.0, float(b.abs().max()))
+        np.testing.assert_allclose(a.cpu().numpy() / scale,
+                                   b.numpy() / scale, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_lvtln_rounds_match_cpu(cuda_device, dtype):
+    args = lvtln_inputs()
+    kwargs = dict(num_groups=16, num_iters=3, default_class=20)
+    ours = fmllr.lvtln_rounds(*on(cuda_device, args, dtype), **kwargs)
+    ref = fmllr.lvtln_rounds(*on('cpu', args, dtype), **kwargs)
+    names = ('weights', 'means', 'inv_vars', 'transforms', 'warps', 'best',
+             'impr', 'beta')
+    assert torch.equal(ours[5].cpu(), ref[5])
+    for name, a, b in zip(names, ours, ref):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-3, err_msg=name)
+
+
+def test_vtln_slice_matches_cpu(cuda_device, corpus):
+    """extract_features with a small vtln section (BASELINE config 4 at
+    test size): the same warps on both devices, features 1e-3."""
+    config = pipeline.get_default_config(
+        'mfcc', with_pitch='kaldi', with_cmvn=True, with_delta=True,
+        with_vtln='full')
+    config['mfcc']['dither'] = 0
+    config['pitch']['postprocessing']['delta_pitch_noise_stddev'] = 0
+    vtln = config['vtln']
+    vtln['features']['mfcc']['dither'] = 0
+    vtln['ubm']['features']['mfcc']['dither'] = 0
+    vtln['num_iters'] = 3
+    vtln['ubm'].update(num_gauss=8, num_iters=2, num_iters_init=4,
+                       num_frames=2000)
+
+    cuda_viterbi.reset_launches()
+    on_cuda = pipeline.extract_features(
+        copy.deepcopy(config), corpus, device=cuda_device)
+    assert min(cuda_viterbi.LAUNCHES.values()) > 0
+    on_cpu = pipeline.extract_features(
+        copy.deepcopy(config), corpus, device='cpu')
+    for name in on_cpu:
+        warp = on_cpu[name].properties['mfcc']['vtln_warp']
+        assert on_cuda[name].properties['mfcc']['vtln_warp'] == warp
+        assert on_cuda[name].shape == on_cpu[name].shape
+        assert np.isfinite(on_cuda[name].data).all()
         assert np.abs(on_cuda[name].data - on_cpu[name].data).max() < 1e-3

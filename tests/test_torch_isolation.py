@@ -5,7 +5,8 @@
    ``importlib`` calls included).
 2. With both blocked in ``sys.modules``, a child process imports the
    port, runs a small MFCC + Kaldi pitch + CMVN + delta
-   ``extract_features(device='cpu')`` and the CLI's ``config`` command.
+   ``extract_features(device='cpu')``, imports the UBM/VTLN trainers
+   and the parameter carriers, and runs the CLI's ``config --vtln``.
 3. The port's own host layer writes the same files as the JAX
    package's: a ``FeaturesCollection`` saved by either loads in the
    other with equal arrays, dtypes and properties.
@@ -90,8 +91,11 @@ out = pipeline.extract_features(
     config, Utterances([('a', {wav!r}, 's')]), device='cpu')
 assert out['a'].shape == (148, 42), out['a'].shape
 assert np.isfinite(out['a'].data).all()
+from shennong_tpu_torch import kaldiio, weights
+from shennong_tpu_torch.processor.vtln import VtlnProcessor
+assert VtlnProcessor().get_params()['ubm']['num_gauss'] == 64
 sys.argv = ['speech-features-torch', 'config', 'mfcc', '--pitch', 'kaldi',
-            '--cmvn', '--delta', '-o', {config!r}]
+            '--cmvn', '--delta', '--vtln', 'simple', '-o', {config!r}]
 main()
 loaded = [name for name, module in sys.modules.items()
           if module is not None and name.split('.')[0] in {BLOCKED!r}]
@@ -106,6 +110,7 @@ print('ok')
     with open(config) as stream:
         text = stream.read()
     assert 'mfcc:' in text and 'pitch:' in text and 'delta:' in text
+    assert 'vtln:' in text and 'ubm:' in text
 
 
 def _collection(features_cls, collection_cls):
