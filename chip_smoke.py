@@ -3,11 +3,15 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``shennong_tpu_torch`` from the sources in
-this checkout, holds each against its plain PyTorch version on the
-card (the corpus batch [64, 598, 417], edge shapes, the chunk shape of
-hour-scale pitch and the 12-minute whole run [1, 71998, 417]), prints
-each kernel's cluster size, registers and spills, milliseconds, time
-per frame, bound and share of the bound, checks the processors against ``tests/data/golden_real.npz``
+this checkout (one nvcc for each source, started together), holds each
+against its plain PyTorch version on the card (the pitch Viterbi at the
+corpus batch [64, 598, 417], edge shapes, the chunk shape of
+hour-scale pitch and the 12-minute whole run [1, 71998, 417]; the
+banded Viterbi of the CREPE device decode at its slice shape [33, 490,
+360], [16, 1024, 360] and [1, 8192, 360]), prints each kernel's
+cluster size, registers and spills, milliseconds, time per frame,
+bound and share of the bound, checks the processors against
+``tests/data/golden_real.npz``
 and ``tests/kaldi_oracle.py``, and drives the port's paths over a
 generated corpus of 256 utterances (4 s and 6 s, 16 speakers):
 
@@ -29,10 +33,25 @@ generated corpus of 256 utterances (4 s and 6 s, 16 speakers):
   section at full width (a 64-component UBM, 41 warp classes, 15
   rounds, by speaker), its wall split into the training's stages, its
   corpus uploads counted, and the trained UBM, transforms, warps and
-  features on the card against the CPU on 16 utterances of 4 speakers.
+  features on the card against the CPU on 16 utterances of 4 speakers;
+- the CREPE slice (BASELINE config 3 with CREPE 'tiny' pitch): MFCC +
+  CREPE pitch + CMVN + delta over the corpus with the float64 host
+  decode (cold run, 5 warm runs, peak memory, a profiled run with the
+  CNN's device time and the decode's host time), then with the device
+  decode, whose banded Viterbi kernel must launch, against the host
+  decode; the card against the CPU on 8 utterances (argmax bins equal
+  but at near-ties of the salience); the 12-minute WAV through the
+  chunked path;
+- the CREPE CNN at the 'full' widths with seeded weights: TFLOP/s and
+  the card against the CPU;
+- bottleneck features (BASELINE config 5) with seeded weights at
+  BabelMulti's widths: ``process_all`` over the corpus (profiled:
+  host front end, device forward), ``extract_features`` with CMVN on
+  16 utterances, and the card against the CPU on 8 utterances.
 
-The three slices and the long-audio run must go through both Viterbi
-kernels. Every phase prints
+The three Kaldi-pitch slices and the long-audio run must go through
+both pitch Viterbi kernels, the CREPE device decode through the banded
+one. Every phase prints
 its lines; any failure raises and the script exits non-zero. The
 second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is the JSON verdict.
@@ -119,29 +138,44 @@ PEAK_BYTES = 3.35e12
 
 
 def build_kernels():
-    """Build csrc/viterbi.cu; returns ptxas's (registers, spill stores,
-    spill loads) by kernel instantiation, e.g. 'viterbi_forward<7>'."""
-    from shennong_tpu_torch.ops import cuda_viterbi
+    """Build csrc/viterbi.cu and csrc/banded_viterbi.cu afresh, one nvcc
+    for each source, started together; returns ptxas's (registers, spill
+    stores, spill loads) by kernel instantiation, e.g.
+    'viterbi_forward<7>' or 'banded_viterbi'."""
+    import concurrent.futures
+
+    from shennong_tpu_torch.ops import cuda_viterbi, viterbi
 
     start = time.perf_counter()
-    path, log = cuda_viterbi.build()
+    sources = (cuda_viterbi._SOURCE, viterbi._SOURCE)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(
+            lambda source: cuda_viterbi.build(source, fresh=True), sources))
     cuda_viterbi._load()
+    viterbi._load()
     seconds = time.perf_counter() - start
-    say('build', f'{os.path.relpath(path, HERE)} in {seconds:.2f} s')
-    resources, current, spills = {}, None, (0, 0)
-    for line in log.splitlines():
-        entry = re.search(r'(viterbi_(?:forward|backtrace))_kernelILi(\d+)E',
-                          line)
-        if entry:
-            current = f'{entry.group(1)}<{entry.group(2)}>'
-        spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
-                          r'loads', line)
-        if spill:
-            spills = (int(spill.group(1)), int(spill.group(2)))
-        used = re.search(r'Used (\d+) registers', line)
-        if used and current:
-            resources[current] = (int(used.group(1)),) + spills
-            current = None
+    say('build', ', '.join(os.path.relpath(path, HERE) for path, _ in built)
+        + f' in {seconds:.2f} s (one nvcc each, in parallel)')
+    resources = {}
+    for _, log in built:
+        current, spills = None, (0, 0)
+        for line in log.splitlines():
+            entry = re.search(
+                r'(viterbi_(?:forward|backtrace))_kernelILi(\d+)E', line)
+            if entry:
+                current = f'{entry.group(1)}<{entry.group(2)}>'
+            elif 'banded_viterbi_kernel' in line:
+                current = 'banded_viterbi'
+            spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                              r'loads', line)
+            if spill:
+                spills = (int(spill.group(1)), int(spill.group(2)))
+            used = re.search(r'Used (\d+) registers', line)
+            if used and current:
+                resources[current] = (int(used.group(1)),) + spills
+                current = None
+    check('banded_viterbi' in resources,
+          'no ptxas resources for banded_viterbi_kernel')
     for name, (registers, stores, loads) in sorted(resources.items()):
         say('build', f'ptxas {name}: {registers} registers, spill stores '
             f'{stores} B, spill loads {loads} B')
@@ -1265,11 +1299,506 @@ def vtln_against_cpu(phase, config, entries):
         f'{SLICE_TOL} ({ties} with proven lag ties)')
 
 
+# ------------------------------------------------ CREPE: the banded Viterbi
+
+BANDED_HALFWIDTH = 11   # the CREPE smoothing prior's band
+
+
+def banded_prior():
+    """(log start, band, uniform weight, self weight) of the CREPE
+    smoothing prior, as the processor's device decode passes them."""
+    from shennong_tpu_torch.processor.pitch_crepe import _crepe_prior_logs
+
+    log_start, _, uniform, self_w, band = _crepe_prior_logs(360)
+    return log_start, band, uniform, self_w
+
+
+def banded_bound(shape, bounds):
+    """(ms, 'operations' or 'bytes'): the least time an H100 SXM could
+    take for the banded decode on this run's data. Operations: for each
+    state of each computed frame, W candidate adds, W - 1 compares, the
+    two emission adds, the row maximum's compare and the subtraction;
+    bytes: the observations and lengths read once, the band and start
+    read once, the paths written once."""
+    rows, frames, states = shape
+    width = 2 * BANDED_HALFWIDTH + 1
+    steps = sum(min(max(n, 1), frames) - 1 for n in bounds)
+    ops = steps * states * (2 * width + 3)
+    nbytes = 4 * (2 * rows * frames + rows + states * (width + 1))
+    by_ops, by_bytes = ops / PEAK_FLOPS_FP32, nbytes / PEAK_BYTES
+    if by_ops >= by_bytes:
+        return by_ops * 1e3, 'operations'
+    return by_bytes * 1e3, 'bytes'
+
+
+def banded_kernel_phase(resources):
+    """The banded Viterbi kernel against its plain version on the card,
+    at the CREPE slice's decode shape [33, 490, 360], at [16, 1024, 360]
+    (rows of 1 frame, partial and full lengths) and at a chunk's [1,
+    8192, 360]: the paths bit-equal, and again over repeated launches.
+    Timed at every shape (CUDA events). Returns (max-abs error, times
+    at the slice's shape)."""
+    from shennong_tpu_torch.ops import viterbi
+
+    phase = 'banded kernel'
+    log_start, band, uniform, self_w = banded_prior()
+    log_start_t = torch.as_tensor(log_start, dtype=torch.float32,
+                                  device='cuda')
+    band_t = torch.as_tensor(band, dtype=torch.float32, device='cuda')
+    rng = np.random.RandomState(6)
+    error, timed = 0.0, None
+    for shape, bounds, plain_repeats in (
+            # the CREPE slice's device decode: 33 rows of 4 s in a bucket
+            # of 490 frames (and 26 rows of 6 s in 613)
+            ((33, 490, 360), [401] * 33, 2),
+            ((16, 1024, 360), [1024] * 6 + [1, 1, 2, 700, 1023, 300, 64,
+                                            1024, 5, 900], 2),
+            ((1, 8192, 360), [8192], 1)):
+        rows, frames, _ = shape
+        # argmax tracks: a wandering pitch, jumps, a plateau of ties
+        obs = np.cumsum(rng.randint(-3, 4, (rows, frames)), axis=1) + 180
+        obs[-1] = rng.randint(0, 360, frames)
+        obs[0, 100:600] = obs[0, 100]
+        obs = torch.as_tensor(np.clip(obs, 0, 359).astype(np.int32),
+                              device='cuda')
+        counts = torch.tensor(bounds, dtype=torch.int32, device='cuda')
+
+        def kernel():
+            return viterbi.viterbi_banded_obs_batch(
+                log_start, band, uniform, self_w, obs, counts,
+                BANDED_HALFWIDTH)
+
+        def plain():
+            return viterbi.viterbi_banded_obs_batch_plain(
+                log_start_t, band_t, uniform, self_w, obs, counts,
+                BANDED_HALFWIDTH)
+
+        paths, reference = kernel(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(paths, reference),
+              f'banded Viterbi paths differ from the plain version at '
+              f'{shape}')
+        error = max(error, float((paths - reference).abs().max()))
+        for _ in range(3):
+            check(torch.equal(kernel(), paths),
+                  f'banded Viterbi paths changed between launches at {shape}')
+        ms = cuda_ms(kernel, 10)
+        plain_ms = cuda_ms(plain, plain_repeats)
+        bound_ms, bound_by = banded_bound(shape, bounds)
+        registers, stores, loads = resources['banded_viterbi']
+        say(phase, f'{shape}, nframes from {min(bounds)} to {max(bounds)}: '
+            f'paths bit-equal to the plain version, repeated launches '
+            f'equal; kernel {ms:.3f} ms ({ms * 1e3 / frames:.3f} us per '
+            f'frame), plain {plain_ms:.3f} ms (CUDA events); {registers} '
+            f'registers, spills {stores}/{loads} B; bound {bound_ms:.5f} ms '
+            f'by {bound_by}, share of bound {bound_ms / ms:.5f}')
+        if timed is None:
+            timed = (ms, plain_ms, bound_ms, bound_by)
+    return error, timed
+
+
+# ------------------------------------------------------------ CREPE slice
+
+def crepe_config(decode='host'):
+    """BASELINE config 3: MFCC + CREPE pitch ('tiny', the shipped
+    weights) + CMVN + delta."""
+    from shennong_tpu_torch import pipeline
+
+    config = pipeline.get_default_config(
+        'mfcc', with_pitch='crepe', with_cmvn=True, with_delta=True)
+    config['pitch']['model_capacity'] = 'tiny'
+    config['pitch']['decode'] = decode
+    return config
+
+
+def crepe_slice(card, workdir, entries):
+    """The CREPE slice over the corpus: a cold run, RUNS timed warm runs
+    (peak memory), a profiled run (the CNN's device ms, the host decode
+    and pass 2); the device decode through ``extract_features`` with its
+    banded Viterbi launches counted, against the host decode; the card
+    against the CPU on 8 utterances; and the 12-minute WAV through the
+    chunked path. Returns the banded Viterbi's launches of the device
+    decode run."""
+    from shennong_tpu_torch import Utterances
+    from shennong_tpu_torch import pipeline
+    from shennong_tpu_torch.ops import viterbi
+    from shennong_tpu_torch.processor.pitch_crepe import CrepePitchProcessor
+
+    phase = 'crepe slice'
+    begin = time.perf_counter()
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          'TF32 is on: the convolutions would round to 10 bits')
+    config = crepe_config()
+    utterances = Utterances(entries)
+    audio_seconds = sum(utt.duration for utt in utterances)
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    pipeline.extract_features(copy.deepcopy(config), utterances,
+                              device='cuda')
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - start
+    torch.cuda.reset_peak_memory_stats()
+    walls, out = warm_runs(config, utterances)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(len(out) == NUM_UTTERANCES, f'{len(out)} outputs')
+    for utt in utterances:
+        nsamples = int(round(utt.duration * RATE))
+        check(out[utt.name].shape == (1 + (nsamples - 400) // 160, 42),
+              f'{utt.name}: shape {out[utt.name].shape}')
+        check(np.isfinite(out[utt.name].data).all(), f'{utt.name}: non-finite')
+    seconds = float(np.median(walls))
+    say(phase, f'{NUM_UTTERANCES} utterances ({audio_seconds:.0f} s of '
+        f'audio), CREPE tiny, host decode: cold run {cold:.3f} s; {RUNS} '
+        f'warm runs: wall median {seconds:.4f} s (min {min(walls):.4f}, max '
+        f'{max(walls):.4f}), warm xRT median {audio_seconds / seconds:.1f} '
+        f'(min {audio_seconds / max(walls):.1f}, max '
+        f'{audio_seconds / min(walls):.1f}) on {card}; peak device memory '
+        f'{peak:.2f} GiB')
+    profile_layers(phase, config, utterances, seconds)
+
+    # the device decode, through the entry point a user calls
+    device_config = crepe_config('device')
+    pipeline.extract_features(copy.deepcopy(device_config),
+                              Utterances(entries[:16]), device='cuda')
+    viterbi.reset_launches()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = pipeline.extract_features(
+        copy.deepcopy(device_config), utterances, device='cuda')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = dict(viterbi.LAUNCHES)
+    check(launches['banded_viterbi'] > 0,
+          'the device decode never launched banded_viterbi')
+    check(len(out) == NUM_UTTERANCES and all(
+        np.isfinite(out[utt.name].data).all() for utt in utterances),
+        'the device decode gave missing or non-finite features')
+    say(phase, f'device decode (extract_features, decode device): wall '
+        f'{wall:.4f} s, xRT {audio_seconds / wall:.1f} on {card}; launches '
+        f'{launches}')
+    profile_layers(f'{phase} device decode', device_config, utterances, wall)
+
+    decode_bins(phase, utterances)
+    host = CrepePitchProcessor(model_capacity='tiny').process_all(
+        utterances, device='cuda')
+    device = CrepePitchProcessor(
+        model_capacity='tiny', decode='device').process_all(
+            utterances, device='cuda')
+    confidence, moved, frames = 0.0, 0, 0
+    for utt in utterances:
+        h, d = host[utt.name].data, device[utt.name].data
+        check(h.shape == d.shape, f'{utt.name}: decode shapes differ')
+        confidence = max(confidence, float(np.abs(h[:, 0] - d[:, 0]).max()))
+        moved += int((np.abs(h[:, 1] - d[:, 1]) > 0.1).sum())
+        frames += h.shape[0]
+    check(confidence < 1e-5, f'device vs host decode: confidence max-abs '
+          f'{confidence}')
+    say(phase, f'device decode vs float64 host decode over the corpus: '
+        f'confidence max-abs {confidence:.3g} < 1e-5; pitch moved by more '
+        f'than 0.1 Hz on {moved} of {frames} frames '
+        f'({moved / frames:.5f})')
+
+    crepe_against_cpu(phase, config, entries[:8])
+    twelve = os.path.join(workdir, 'twelve.wav')
+    if not os.path.isfile(twelve):
+        write_wav(twelve, 720, seed=2000)
+    crepe_long(phase, card, twelve)
+    say(phase, f'phase time {time.perf_counter() - begin:.1f} s')
+    return launches
+
+
+def decode_bins(phase, utterances):
+    """The smoothed bins of the device decode against the float64 host
+    decode on the model grid: every utterance's argmax bins from the
+    card, all rows through one launch of the banded Viterbi kernel, and
+    each row through the host decoder; prints the share of frames whose
+    bin differs."""
+    from shennong_tpu_torch.ops import viterbi
+    from shennong_tpu_torch.processor.pitch_crepe import (
+        CrepePitchProcessor, _viterbi_bin_path)
+
+    proc = CrepePitchProcessor(model_capacity='tiny')
+    tracks = [proc._device_salience(
+        proc._check_audio(utt.load_audio()).data, 'cuda').argmax
+        for utt in utterances]
+    obs = np.zeros((len(tracks), max(map(len, tracks))), np.int32)
+    for row, track in enumerate(tracks):
+        obs[row, :len(track)] = track
+    log_start, band, uniform, self_w = banded_prior()
+    device = viterbi.viterbi_banded_obs_batch(
+        log_start, band, uniform, self_w,
+        torch.as_tensor(obs, device='cuda'),
+        torch.tensor([len(t) for t in tracks], dtype=torch.int32,
+                     device='cuda'), BANDED_HALFWIDTH).cpu().numpy()
+    differ = sum(int((device[row, :len(track)] != _viterbi_bin_path(
+        track, 360)).sum()) for row, track in enumerate(tracks))
+    frames = sum(map(len, tracks))
+    say(phase, f'smoothed bins of the device decode (one kernel launch at '
+        f'{list(obs.shape) + [360]}) against the float64 host decode: '
+        f'{differ} of {frames} frames differ ({differ / frames:.5f})')
+
+
+def crepe_against_cpu(phase, config, entries):
+    """CREPE on the card against the CPU on ``entries``: the argmax bins
+    equal wherever the CPU's two best saliences differ by more than
+    1e-5 (a bin that differs elsewhere is a near-tie, counted); the
+    salience within 1e-4; the features of ``extract_features`` (random
+    sources at 0) within SLICE_TOL on the utterances whose bins all
+    agree."""
+    from shennong_tpu_torch import Utterances
+    from shennong_tpu_torch import pipeline
+    from shennong_tpu_torch.processor import energy as energy_module
+    from shennong_tpu_torch.processor.pitch_crepe import CrepePitchProcessor
+
+    proc = CrepePitchProcessor(model_capacity='tiny')
+    utterances = Utterances(entries)
+    agree, near, ties, worst_sal = [], 0, 0, 0.0
+    for utt in utterances:
+        audio = proc._check_audio(utt.load_audio())
+        salience = {
+            device: proc._device_salience(audio.data, device)
+            for device in ('cuda', 'cpu')}
+        gpu = torch.cat([s[:n] for s, n in zip(
+            salience['cuda'].chunks, salience['cuda'].counts)]).cpu()
+        cpu = torch.cat([s[:n] for s, n in zip(
+            salience['cpu'].chunks, salience['cpu'].counts)])
+        worst_sal = max(worst_sal, float((gpu - cpu).abs().max()))
+        top = cpu.topk(2, dim=-1).values
+        clear = (top[:, 0] - top[:, 1] > 1e-5).numpy()
+        same = salience['cuda'].argmax == salience['cpu'].argmax
+        check(same[clear].all(), f'{utt.name}: argmax bins differ where the '
+              'CPU\'s two best saliences are more than 1e-5 apart')
+        near += int((~clear).sum())
+        ties += int((~same).sum())
+        if same.all():
+            agree.append(utt.name)
+    check(worst_sal < 1e-4, f'CREPE salience cuda vs cpu max-abs {worst_sal}')
+
+    config = copy.deepcopy(config)
+    config['mfcc']['dither'] = 0
+    config['pitch']['postprocessing']['delta_pitch_noise_stddev'] = 0
+    defaults = energy_module.EnergyProcessor.__init__.__defaults__
+    energy_module.EnergyProcessor.__init__.__defaults__ = (
+        defaults[:3] + (0.0,) + defaults[4:])
+    try:
+        on = {device: pipeline.extract_features(
+            copy.deepcopy(config), utterances, device=device)
+            for device in ('cuda', 'cpu')}
+    finally:
+        energy_module.EnergyProcessor.__init__.__defaults__ = defaults
+    worst = 0.0
+    for name in agree:
+        diff = np.abs(on['cuda'][name].data - on['cpu'][name].data)
+        check(diff.max() < SLICE_TOL, f'{name}: cuda vs cpu max-abs '
+              f'{diff.max()}')
+        worst = max(worst, float(diff.max()))
+    say(phase, f'cuda vs cpu on {len(entries)} utterances: salience max-abs '
+        f'{worst_sal:.3g} < 1e-4; argmax bins equal wherever the CPU\'s two '
+        f'best saliences differ by more than 1e-5; {near} frames where they '
+        f'do not, {ties} frames with a bin that differs; features of the '
+        f'{len(agree)} '
+        f'utterances whose bins all agree: max-abs {worst:.3g} < {SLICE_TOL}')
+
+
+def crepe_long(phase, card, path):
+    """The 12-minute WAV through ``CrepePitchProcessor.process``: the
+    chunked path, in chunks of CHUNK_FRAMES; wall and peak memory."""
+    from shennong_tpu_torch import Audio
+    from shennong_tpu_torch.processor.pitch_crepe import CrepePitchProcessor
+
+    audio = Audio.load(path)
+    proc = CrepePitchProcessor(model_capacity='tiny')
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = proc.process(audio, device='cuda')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    frames = 1 + audio.nsamples // 160  # centered: 512 samples each side
+    check(out.shape == (1 + (audio.nsamples - 400) // 160, 2)
+          and np.isfinite(out.data).all(), f'12 min CREPE: {out.shape}')
+    say(phase, f'12 min CREPE tiny ({frames} model frames in '
+        f'{-(-frames // proc.CHUNK_FRAMES)} chunks of {proc.CHUNK_FRAMES}): '
+        f'{out.shape}, wall {wall:.3f} s, xRT {audio.duration / wall:.1f}, '
+        f'peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} '
+        f'GiB on {card}')
+
+
+def crepe_flops(channels):
+    """Multiply-adds times 2 of one frame through the CREPE CNN of
+    ``channels`` (the six convolutions at their output widths and the
+    classifier)."""
+    from shennong_tpu_torch.models import crepe
+
+    flops, width, cin = 0, crepe.FRAME, 1
+    for cout, kernel, stride in zip(channels, crepe.LAYER_WIDTHS,
+                                    crepe.LAYER_STRIDES):
+        width = -(-width // stride)
+        flops += 2 * width * cin * cout * kernel
+        width //= 2
+        cin = cout
+    return flops + 2 * width * cin * crepe.BINS
+
+
+def crepe_full(card, entries):
+    """The CREPE CNN at the 'full' widths (channel multiplier 32) with
+    seeded synthetic weights, built through weights.crepe_from_numpy and
+    not installed: timed over 16 utterances' frames (CUDA events, ms,
+    TFLOP/s and share of the float32 peak), peak memory, and the card
+    against the CPU on 4 frames."""
+    from shennong_tpu_torch import Utterances
+    from shennong_tpu_torch.models import crepe
+    from shennong_tpu_torch.processor.pitch_crepe import CrepePitchProcessor
+    from shennong_tpu_torch.weights import crepe_from_numpy
+
+    phase = 'crepe full'
+    rng = np.random.RandomState(32)
+    mult = crepe.CAPACITY_MULTIPLIER['full']
+    params, cin = {}, 1
+    for i, (filters, width) in enumerate(
+            zip(crepe.LAYER_FILTERS, crepe.LAYER_WIDTHS), start=1):
+        cout = filters * mult
+        params[f'conv{i}/kernel'] = (rng.randn(width, cin, cout)
+                                     / np.sqrt(width * cin)).astype(np.float32)
+        params[f'conv{i}/bias'] = (0.01 * rng.randn(cout)).astype(np.float32)
+        params[f'conv{i}/gamma'] = (1 + 0.1 * rng.randn(cout)).astype(
+            np.float32)
+        params[f'conv{i}/beta'] = (0.1 * rng.randn(cout)).astype(np.float32)
+        params[f'conv{i}/mean'] = (0.1 * rng.rand(cout)).astype(np.float32)
+        params[f'conv{i}/var'] = (0.5 + rng.rand(cout)).astype(np.float32)
+        cin = cout
+    params['classifier/kernel'] = (rng.randn(4 * cin, 360)
+                                   / np.sqrt(4 * cin)).astype(np.float32)
+    params['classifier/bias'] = np.zeros(360, np.float32)
+    model = crepe_from_numpy(params)
+    check(crepe.capacity_of(params) == 'full', 'not the full widths')
+
+    proc = CrepePitchProcessor(model_capacity='tiny')
+    frames = np.concatenate([
+        proc._model_frames(utt.load_audio().data)
+        for utt in Utterances(entries[:16])])
+    gpu_model = copy.deepcopy(model).to('cuda')
+    inputs = torch.as_tensor(frames, device='cuda')
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: gpu_model(inputs), 3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        gpu = gpu_model(inputs[:4]).cpu()
+        cpu = model(torch.as_tensor(frames[:4]))
+    err = float((gpu - cpu).abs().max())
+    check(err < 1e-4, f'CREPE full cuda vs cpu max-abs {err}')
+    flops = crepe_flops(model.channels) * frames.shape[0]
+    rate = flops / (ms * 1e-3) / 1e12
+    say(phase, f'channels {model.channels}, {crepe_flops(model.channels) / 1e9:.3f} '
+        f'GFLOP a frame: {frames.shape[0]} frames of 16 utterances in '
+        f'{ms:.3f} ms (CUDA events), {rate:.2f} TFLOP/s, share of the '
+        f'67 TFLOP/s float32 peak {rate / 67:.3f}; peak device memory '
+        f'{peak:.2f} GiB on {card}; cuda vs cpu on 4 frames max-abs '
+        f'{err:.3g} < 1e-4')
+
+
+# ------------------------------------------------------------- bottleneck
+
+def bottleneck_weights(directory):
+    """Seeded synthetic weights at BabelMulti's published widths (hidden
+    1500, bottleneck 80), in the layer layout and context (5 frames) of
+    tests/processor/test_bottleneck.py, written where the processor
+    looks for BabelMulti; returns the directory."""
+    rng = np.random.RandomState(15)
+    hidden = 1500
+    params = {
+        'context': np.int64(5),
+        'input_mean': rng.randn(144) * 0.1,
+        'input_std': np.abs(rng.randn(144)) * 0.5 + 0.5,
+        'bn_mean': rng.randn(400) * 0.1,
+        'bn_std': np.abs(rng.randn(400)) * 0.5 + 0.5,
+    }
+    for name, (nin, nout) in {
+            'W1': (144, hidden), 'W2': (hidden, hidden),
+            'W3': (hidden, 80), 'W5': (400, hidden),
+            'W6': (hidden, hidden), 'W7': (hidden, hidden),
+            'W8': (hidden, 80)}.items():
+        params[name] = (rng.randn(nin, nout) / np.sqrt(nin)).astype(np.float32)
+        params['b' + name[1:]] = (rng.randn(nout) * 0.1).astype(np.float32)
+    os.makedirs(directory, exist_ok=True)
+    np.savez(os.path.join(
+        directory, 'Babel-ML17_FBANK_HL1500_SBN80_PhnStates3096.npz'),
+        **params)
+    return directory
+
+
+def bottleneck_phase(card, workdir, entries):
+    """Bottleneck features (BASELINE config 5) with synthetic BabelMulti
+    weights: ``process_all`` over the corpus (a warm-up, a timed run,
+    a profiled run: the host front end and the device forward),
+    ``extract_features`` with bottleneck features and CMVN on 16
+    utterances, and the card against the CPU on 8 utterances."""
+    from shennong_tpu_torch import Utterances
+    from shennong_tpu_torch import pipeline
+    from shennong_tpu_torch.processor import bottleneck as bn_module
+
+    phase = 'bottleneck'
+    begin = time.perf_counter()
+    bn_module._SHARE_DIR = bottleneck_weights(
+        os.path.join(workdir, 'bottleneck_weights'))
+    bn_module.BottleneckProcessor._loaded_weights.clear()
+    proc = bn_module.BottleneckProcessor(weights='BabelMulti')
+    utterances = Utterances(entries)
+    audio_seconds = sum(utt.duration for utt in utterances)
+
+    proc.process_all(Utterances(entries[:16]), device='cuda')
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = proc.process_all(utterances, device='cuda')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    for utt in utterances:
+        nsamples = int(round(utt.duration * 8000))
+        check(out[utt.name].shape == ((nsamples - 200) // 80 + 1, 80)
+              and np.isfinite(out[utt.name].data).all(),
+              f'{utt.name}: bottleneck {out[utt.name].shape}')
+    say(phase, f'process_all, BabelMulti widths (synthetic weights), '
+        f'{NUM_UTTERANCES} utterances ({audio_seconds:.0f} s): wall '
+        f'{wall:.4f} s, xRT {audio_seconds / wall:.1f}, peak device memory '
+        f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB on {card}')
+    profile_layers(phase, None, utterances, wall, run=lambda: proc.process_all(
+        utterances, device='cuda'))
+
+    config = pipeline.get_default_config('bottleneck', with_cmvn=True)
+    sixteen = Utterances(entries[:16])
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    feats = pipeline.extract_features(config, sixteen, device='cuda')
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    for utt in sixteen:
+        check(feats[utt.name].shape == out[utt.name].shape
+              and np.isfinite(feats[utt.name].data).all(),
+              f'{utt.name}: bottleneck + cmvn {feats[utt.name].shape}')
+    say(phase, f'extract_features, bottleneck + CMVN on 16 utterances: wall '
+        f'{seconds:.3f} s, shapes and finiteness checked')
+
+    still = bn_module.BottleneckProcessor(weights='BabelMulti', dither=0)
+    eight = Utterances(entries[:8])
+    on = {device: still.process_all(eight, device=device)
+          for device in ('cuda', 'cpu')}
+    worst = max(float(np.abs(on['cuda'][name].data - on['cpu'][name].data)
+                      .max()) for name in on['cpu'].keys())
+    check(worst < SLICE_TOL, f'bottleneck cuda vs cpu max-abs {worst}')
+    say(phase, f'cuda vs cpu on 8 utterances, dither 0: max-abs {worst:.3g} '
+        f'< {SLICE_TOL}')
+    say(phase, f'phase time {time.perf_counter() - begin:.1f} s')
+
+
 #: the port's profiler spans (torch.profiler.record_function)
 SPANS = ('pass1.dispatch', 'pass1.wait', 'batch.dispatch', 'batch.wait',
          'batch.chunked', 'pass2', 'plp.rasta', 'plp.durbin', 'ubm.frontend',
          'ubm.init', 'ubm.em', 'vtln.moments', 'vtln.solve', 'vtln.gselect',
-         'vtln.rounds')
+         'vtln.rounds', 'crepe.load', 'crepe.cnn', 'crepe.decode',
+         'crepe.post', 'bottleneck.frontend', 'bottleneck.forward')
 RUN_SPAN = 'chip_smoke.run'
 
 
@@ -1297,11 +1826,12 @@ def print_parts(phase, prof, parts):
         f'{label} {ms:.1f} ms' for label, ms in pieces))
 
 
-def profile_layers(phase, config, utterances, wall_s, parts=None):
-    """One more run under torch.profiler: device busy time by kernel,
-    and for each span of the port its host time and the device time of
-    the kernels launched inside it; with ``parts``, the run's wall split
-    into stages (:func:`print_parts`)."""
+def profile_layers(phase, config, utterances, wall_s, parts=None, run=None):
+    """One more run under torch.profiler (``extract_features`` of
+    ``config``, or ``run()``): device busy time by kernel, and for each
+    span of the port its host time and the device time of the kernels
+    launched inside it; with ``parts``, the run's wall split into
+    stages (:func:`print_parts`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1310,8 +1840,11 @@ def profile_layers(phase, config, utterances, wall_s, parts=None):
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
         with torch.profiler.record_function(RUN_SPAN):
-            pipeline.extract_features(
-                copy.deepcopy(config), utterances, device='cuda')
+            if run is None:
+                pipeline.extract_features(
+                    copy.deepcopy(config), utterances, device='cuda')
+            else:
+                run()
             torch.cuda.synchronize()
     averages = prof.key_averages()
     # the annotations appear twice: as host spans, whose device time
@@ -1350,6 +1883,8 @@ def main():
     card = probe()
     resources = build_kernels()
     errors, times = kernels_vs_plain(resources)
+    errors['banded_viterbi'], times['banded_viterbi'] = banded_kernel_phase(
+        resources)
     goldens()
     workdir = os.path.join(HERE, 'build', 'chip_smoke_corpus')
     launches = {'viterbi_forward': 0, 'viterbi_backtrace': 0}
@@ -1367,23 +1902,30 @@ def main():
             errors[name] = max(errors[name], chunk_errors[name])
         for name, count in vtln_slice(card, entries).items():
             launches[name] += count
+        launches.update(crepe_slice(card, workdir, entries))
+        crepe_full(card, entries)
+        bottleneck_phase(card, workdir, entries)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    replaces = {
-        'viterbi_forward': 'shennong_tpu/ops/pallas_viterbi.py:77',
-        'viterbi_backtrace': 'shennong_tpu/ops/pallas_viterbi.py:183',
+    kernels = {
+        'viterbi_forward': ('shennong_tpu_torch/csrc/viterbi.cu',
+                            'shennong_tpu/ops/pallas_viterbi.py:77'),
+        'viterbi_backtrace': ('shennong_tpu_torch/csrc/viterbi.cu',
+                              'shennong_tpu/ops/pallas_viterbi.py:183'),
+        # a lax.scan, not a Pallas kernel: the CREPE device decode
+        'banded_viterbi': ('shennong_tpu_torch/csrc/banded_viterbi.cu',
+                           'shennong_tpu/ops/viterbi.py:133'),
     }
     print(json.dumps({'kernels': [
-        {'name': name, 'route': 'cuda',
-         'source': 'shennong_tpu_torch/csrc/viterbi.cu',
-         'replaces': replaces[name], 'launches': launches[name],
+        {'name': name, 'route': 'cuda', 'source': source,
+         'replaces': replaces, 'launches': launches[name],
          'max_abs_err': errors[name], 'ms': times[name][0],
          'plain_ms': times[name][1], 'bound_ms': times[name][2],
          'bound_by': times[name][3],
-         # no single PyTorch call computes the min-plus Viterbi
+         # no single PyTorch call computes a min-plus or max-plus Viterbi
          'library_ms': None}
-        for name in ('viterbi_forward', 'viterbi_backtrace')]}))
+        for name, (source, replaces) in kernels.items()]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -35,6 +35,7 @@ setup(
     package_data={
         'shennong_tpu': ['share/crepe/*.npz', 'native/*.cpp'],
         # the PyTorch port builds its CUDA kernels from these
-        'shennong_tpu_torch': ['csrc/*.cu', 'native/*.cpp']},
+        'shennong_tpu_torch': [
+            'csrc/*.cu', 'native/*.cpp', 'share/crepe/*.npz']},
     zip_safe=True,
 )

@@ -2,7 +2,7 @@
 
 The port's own copy of ``shennong_tpu/audio.py``, with the methods the
 port calls: load and scan audio files, dtype conversions with range
-validation and time segmentation.
+validation, resampling and time segmentation.
 
 Decoding relies on :mod:`scipy.io.wavfile` for WAV and on the port's
 native runtime for compressed formats: FLAC through its own decoder
@@ -21,6 +21,7 @@ import wave
 
 import numpy as np
 import scipy.io.wavfile
+import scipy.signal
 
 
 def _ffmpeg_binary():
@@ -314,6 +315,40 @@ class Audio:
                 data = self.data
 
         return Audio(data.astype(dtype), self.sample_rate, validate=False)
+
+    def resample(self, sample_rate, backend='sox'):
+        """Return the signal resampled at ``sample_rate``.
+
+        ``backend`` selects the resampling engine: 'sox' (alias of
+        'poly', a bandlimited polyphase resampler) or 'scipy' (FFT
+        resampling via ``scipy.signal.resample``). Integer signals are
+        rounded to the nearest integer and clipped to their type's
+        range.
+        """
+        if backend not in ('sox', 'poly', 'scipy'):
+            raise ValueError(
+                f'backend must be sox, poly or scipy, it is {backend}')
+
+        if sample_rate == self.sample_rate:
+            return self
+
+        if backend == 'scipy':
+            nsamples = int(self.nsamples * sample_rate / self.sample_rate)
+            with warnings.catch_warnings():
+                warnings.simplefilter('ignore')
+                data = scipy.signal.resample(self.data, nsamples)
+        else:
+            from fractions import Fraction
+            frac = Fraction(
+                int(sample_rate), int(self.sample_rate)).limit_denominator()
+            data = scipy.signal.resample_poly(
+                self.data.astype(np.float64), frac.numerator,
+                frac.denominator, axis=0)
+
+        if np.issubdtype(self.dtype, np.integer):
+            info = np.iinfo(self.dtype)
+            data = np.clip(np.rint(data), info.min, info.max)
+        return Audio(data.astype(self.dtype), sample_rate, validate=False)
 
     def segment(self, segments):
         """Slice the signal into chunks given (tstart, tstop) pairs."""

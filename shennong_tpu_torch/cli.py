@@ -1,11 +1,13 @@
 """The ``speech-features-torch`` command line interface.
 
-Counterpart of the ``config`` and ``extract`` commands of
-:mod:`shennong_tpu.cli`, on the PyTorch port's pipeline: a ``config``
-subcommand generating commented YAML pipeline configurations and an
-``extract`` subcommand running a pipeline over an utterances index
-file on the device given by ``--device`` (default ``cuda``; nothing
-falls back to the CPU when CUDA is missing).
+Counterpart of the ``config``, ``extract`` and ``convert-crepe``
+commands of :mod:`shennong_tpu.cli`, on the PyTorch port's pipeline: a
+``config`` subcommand generating commented YAML pipeline
+configurations, an ``extract`` subcommand running a pipeline over an
+utterances index file on the device given by ``--device`` (default
+``cuda``; nothing falls back to the CPU when CUDA is missing), and a
+``convert-crepe`` subcommand turning a published keras CREPE
+checkpoint into the port's npz weights.
 
 The extraction pipeline is::
 
@@ -165,6 +167,53 @@ def _command_extract(args):
     features.save(output_file)
 
 
+def _parser_convert_crepe(subparsers, epilog):
+    parser = subparsers.add_parser(
+        'convert-crepe',
+        description=(
+            'Convert a published keras CREPE checkpoint (model-tiny.h5 '
+            '... model-full.h5, from github.com/marl/crepe) into the '
+            'npz parameter file the CREPE network loads. The converted '
+            'file is written next to the input or into --output; '
+            'install it into shennong_tpu_torch/share/crepe/ to make '
+            'the capacity available to CrepePitchProcessor. Needs '
+            'h5py.'),
+        epilog=epilog,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument(
+        'checkpoint', help='path to a keras CREPE .h5 checkpoint')
+    parser.add_argument(
+        '-o', '--output', default=None,
+        help='output .npz path (default: alongside the checkpoint, '
+        'or directly into the package share directory with --install)')
+    parser.add_argument(
+        '--install', action='store_true',
+        help='write into shennong_tpu_torch/share/crepe/ so the capacity '
+        'is immediately usable')
+
+
+def _command_convert_crepe(args):
+    import numpy as np
+    from shennong_tpu_torch.models import crepe
+
+    params = crepe.convert_keras_h5(args.checkpoint)
+    capacity = crepe.capacity_of(params)
+
+    if args.output:
+        output = args.output
+    elif args.install:
+        output = os.path.join(
+            os.path.abspath(crepe.SHARE_DIR), f'model-{capacity}.npz')
+    else:
+        output = os.path.join(
+            os.path.dirname(os.path.abspath(args.checkpoint)),
+            f'model-{capacity}.npz')
+
+    np.savez(output, **params)
+    print(f'converted {args.checkpoint} (capacity {capacity}) '
+          f'-> {output}')
+
+
 @utils.CatchExceptions
 def main():
     """Entry point of the ``speech-features-torch`` program"""
@@ -184,17 +233,21 @@ def main():
         description="use 'speech-features-torch <command> --help' for "
         'details',
         help="the 'config' command generates configuration templates, "
-        "the 'extract' command extracts features given a configuration",
+        "the 'extract' command extracts features given a configuration, "
+        "the 'convert-crepe' command converts CREPE weights",
         dest='command', required=True)
 
     _parser_config(subparsers, epilog)
     _parser_extract(subparsers, epilog)
+    _parser_convert_crepe(subparsers, epilog)
 
     args = parser.parse_args()
     if args.command == 'config':
         _command_config(args)
-    else:
+    elif args.command == 'extract':
         _command_extract(args)
+    else:
+        _command_convert_crepe(args)
 
 
 if __name__ == '__main__':

@@ -4,8 +4,9 @@ The port's own copy of the loader of ``shennong_tpu/native``, with the
 entry points the port calls: fast WAV header scans and a threaded
 batched PCM16 WAV loader (``shennong_io.cpp``), the Kaldi ark indexer
 and bulk reader (``shennong_io.cpp``), a FLAC decoder
-(``shennong_flac.cpp``), a threaded CSV writer (``shennong_csv.cpp``)
-and the compressed-audio codec through the system libav* libraries
+(``shennong_flac.cpp``), a threaded CSV writer (``shennong_csv.cpp``),
+the float64 banded Viterbi decoders of the CREPE pitch smoothing
+(``shennong_viterbi.cpp``) and the compressed-audio codec through the system libav* libraries
 (``shennong_codec.cpp``, its own library so a machine without
 libavformat still gets the rest).
 
@@ -32,7 +33,8 @@ _BUILD_DIR = os.path.join(os.path.dirname(_HERE), '_build')
 # bit-exact against their numpy paths)
 _FLAGS = ['-O3', '-shared', '-fPIC', '-std=c++17', '-pthread',
           '-ffp-contract=off']
-_IO_SOURCES = ['shennong_io.cpp', 'shennong_flac.cpp', 'shennong_csv.cpp']
+_IO_SOURCES = ['shennong_io.cpp', 'shennong_flac.cpp', 'shennong_csv.cpp',
+               'shennong_viterbi.cpp']
 _CODEC_SOURCES = ['shennong_codec.cpp']
 _CODEC_LIBS = ['-lavformat', '-lavcodec', '-lavutil', '-lswresample']
 
@@ -40,7 +42,7 @@ _lock = threading.Lock()
 _libraries = {}
 
 _P = ctypes.POINTER
-_I32, _I64 = ctypes.c_int32, ctypes.c_int64
+_I32, _I64, _F64 = ctypes.c_int32, ctypes.c_int64, ctypes.c_double
 
 #: name -> (restype, argtypes) of the entry points bound from each library
 _IO_SIGNATURES = {
@@ -60,8 +62,12 @@ _IO_SIGNATURES = {
         ctypes.c_char_p, _P(_I32), _P(_I32), _P(_I32), _P(_I64)]),
     'shennong_flac_decode': (_I64, [ctypes.c_char_p, _P(_I32), _I64]),
     'shennong_csv_write': (_I64, [
-        ctypes.c_char_p, ctypes.c_char_p, _P(ctypes.c_double), _I64,
-        _I32, _I32]),
+        ctypes.c_char_p, ctypes.c_char_p, _P(_F64), _I64, _I32, _I32]),
+    'shennong_viterbi_banded': (_I64, [
+        _P(_F64), _P(_F64), _P(_F64), _I64, _I64, _I64, _P(_I64)]),
+    'shennong_viterbi_banded_two': (_I64, [
+        _P(_F64), _P(_F64), _F64, _F64, _P(_I32), _I64, _I64, _I64,
+        _P(_I64)]),
 }
 _CODEC_SIGNATURES = {
     'shennong_codec_scan': (ctypes.c_int, [
@@ -320,6 +326,55 @@ def csv_write(path, header, values, num_threads=8):
         return False
     written = lib.shennong_csv_write(
         str(path).encode(), header.encode(),
-        values.ctypes.data_as(_P(ctypes.c_double)),
+        values.ctypes.data_as(_P(_F64)),
         values.shape[0], values.shape[1], num_threads)
     return written >= 0
+
+
+def viterbi_banded(log_start, band, log_obs):
+    """Banded Viterbi decode, or None when the library is unavailable
+    or refuses the band (wider than 127).
+
+    ``band[j, d]`` holds the transition weight from state
+    ``j - halfwidth + d`` to state ``j`` (-inf outside the band and
+    the state range); halfwidth is inferred from the band width.
+    Bit-identical to the numpy decoder in ops/viterbi.py.
+    """
+    lib = load_library()
+    if lib is None:
+        return None
+    log_start = np.ascontiguousarray(log_start, dtype=np.float64)
+    band = np.ascontiguousarray(band, dtype=np.float64)
+    log_obs = np.ascontiguousarray(log_obs, dtype=np.float64)
+    nframes, nstates = log_obs.shape
+    path = np.empty(nframes, dtype=np.int64)
+    status = lib.shennong_viterbi_banded(
+        log_start.ctypes.data_as(_P(_F64)), band.ctypes.data_as(_P(_F64)),
+        log_obs.ctypes.data_as(_P(_F64)), nframes, nstates, band.shape[1],
+        path.ctypes.data_as(_P(_I64)))
+    return path if status == 0 else None
+
+
+def viterbi_banded_two(log_start, band, uniform_weight, self_weight,
+                       observations, nstates):
+    """Banded Viterbi decode with a two-valued observation model, or
+    None when the library is unavailable or refuses the band.
+
+    State j at frame t weighs ``self_weight`` when
+    ``j == observations[t]`` and ``uniform_weight`` otherwise (the
+    CREPE smoothing prior), avoiding the dense [T, S] observation
+    matrix.
+    """
+    lib = load_library()
+    if lib is None:
+        return None
+    log_start = np.ascontiguousarray(log_start, dtype=np.float64)
+    band = np.ascontiguousarray(band, dtype=np.float64)
+    observations = np.ascontiguousarray(observations, dtype=np.int32)
+    path = np.empty(observations.shape[0], dtype=np.int64)
+    status = lib.shennong_viterbi_banded_two(
+        log_start.ctypes.data_as(_P(_F64)), band.ctypes.data_as(_P(_F64)),
+        float(uniform_weight), float(self_weight),
+        observations.ctypes.data_as(_P(_I32)), observations.shape[0],
+        nstates, band.shape[1], path.ctypes.data_as(_P(_I64)))
+    return path if status == 0 else None

@@ -59,18 +59,21 @@ def _nvcc():
     return os.path.join(home, 'bin', 'nvcc')
 
 
-def build():
-    """Compile ``csrc/viterbi.cu`` (once per source content).
+def build(source=_SOURCE, fresh=False):
+    """Compile a CUDA source of ``csrc/`` (``csrc/viterbi.cu`` by
+    default) into ``_build/lib<name>-<digest>.so``, once per source
+    content, or again when ``fresh``.
 
     Returns ``(library_path, compiler_log)``; the log is empty when an
     up-to-date library was already there. Raises RuntimeError with
     nvcc's output when the build fails.
     """
-    with open(_SOURCE, 'rb') as fp:
+    with open(source, 'rb') as fp:
         digest = hashlib.sha1(
             fp.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    target = os.path.join(_BUILD_DIR, f'libviterbi-{digest}.so')
-    if os.path.isfile(target):
+    name = os.path.splitext(os.path.basename(source))[0]
+    target = os.path.join(_BUILD_DIR, f'lib{name}-{digest}.so')
+    if os.path.isfile(target) and not fresh:
         return target, ''
     os.makedirs(_BUILD_DIR, exist_ok=True)
     # build under a private name, then rename: concurrent builds
@@ -78,13 +81,13 @@ def build():
     handle, partial = tempfile.mkstemp(suffix='.so', dir=_BUILD_DIR)
     os.close(handle)
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, '-o', partial, _SOURCE],
+        [_nvcc(), *NVCC_FLAGS, '-o', partial, source],
         capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         os.unlink(partial)
         raise RuntimeError(
-            f'nvcc failed to build {_SOURCE} (exit {proc.returncode}):\n'
+            f'nvcc failed to build {source} (exit {proc.returncode}):\n'
             + log)
     os.replace(partial, target)
     return target, log

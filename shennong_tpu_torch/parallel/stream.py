@@ -40,6 +40,18 @@ def _scan_count(utt):
     return meta.nsamples - start if count is None else count
 
 
+def as_int16_if_lossless(signals):
+    """The int16 copy of integer-valued audio, else the input.
+
+    Integer-valued rows (always true for PCM WAV) upload at half the
+    float32 bytes; the consumers convert back on the device.
+    """
+    if signals.dtype == np.int16 or not isinstance(signals, np.ndarray):
+        return signals
+    as_i16 = signals.astype(np.int16)
+    return as_i16 if np.array_equal(as_i16, signals) else signals
+
+
 def plan_batches(utterances, batch_size):
     """Partition utterances into batches of at most ``batch_size``,
     sorted by scanned length (stable). Returns a list of lists."""

@@ -1,13 +1,12 @@
 """High-level features extraction pipeline (YAML config driven).
 
-Counterpart of :mod:`shennong_tpu.pipeline` for the configurations
-ported so far: spectrogram, filterbank, MFCC or PLP (with or without
-RASTA) features with optional Kaldi pitch, CMVN (with the energy VAD)
-and deltas, on utterances of any length, with optional precomputed
-VTLN warps or a ``vtln`` section that trains them (a UBM-GMM and
-LVTLN transforms, :class:`shennong_tpu_torch.processor.vtln.VtlnProcessor`),
-over corpora of one or several sample rates. Bottleneck features and
-CREPE pitch raise NotImplementedError.
+Counterpart of :mod:`shennong_tpu.pipeline`: spectrogram, filterbank,
+MFCC, PLP (with or without RASTA) or bottleneck features with optional
+Kaldi or CREPE pitch, CMVN (with the energy VAD) and deltas, on
+utterances of any length, with optional precomputed VTLN warps or a
+``vtln`` section that trains them (a UBM-GMM and LVTLN transforms,
+:class:`shennong_tpu_torch.processor.vtln.VtlnProcessor`), over corpora
+of one or several sample rates.
 
 With a ``vtln`` section, one
 :class:`~shennong_tpu_torch.parallel.stream.SignalCache` spans the VTLN
@@ -24,13 +23,16 @@ from the sample rates and the frame counts, as the reference does:
   runs on the host as soon as a CMVN group (a speaker, or one
   utterance) has landed, and a pass-2 failure stops pass 1 at once;
 - **stage-wise** (one sample rate, an utterance past a processor's
-  ``AUTO_CHUNK_FRAMES``): one sweep of the corpus per stage through
+  ``AUTO_CHUNK_FRAMES``, or CREPE pitch): one sweep of the corpus per
+  stage through
   :class:`shennong_tpu_torch.parallel.executor.BatchExecutor`, which
   sends the hour-scale utterances through chunked extraction; a
   :class:`shennong_tpu_torch.parallel.stream.SignalCache` replays the
-  uploaded batches between sweeps;
-- **per utterance** (several sample rates): each utterance through its
-  own processors, built at its sample rate.
+  uploaded batches between sweeps. CREPE pitch runs its own batched
+  ``process_all`` over the corpus;
+- **per utterance** (several sample rates, or bottleneck features):
+  each utterance through its own processors, built at its sample
+  rate.
 
 Pass 2 (CMVN statistics and their application, deltas, the pitch
 concatenation) is the same on every path.
@@ -195,8 +197,9 @@ def extract_features(configuration, utterances, warps=None, *, device,
         meta.sample_rate for meta in manager.audio_metadata.values())
     utterances = list(utterances)
 
-    if len(rates) != 1:
-        log.debug('per-utterance pass 1 over %d sample rates', len(rates))
+    if len(rates) != 1 or manager.features == 'bottleneck':
+        log.debug('per-utterance pass 1 of %s over %d sample rates',
+                  manager.features, len(rates))
         triplets = [
             _extract_pass_one(utt, manager, device, generator, log)
             for utt in utterances]
@@ -376,9 +379,12 @@ def _init_warps(warps, config, utterances, log):
 
 
 def _fits_fused(manager, utterances):
-    """Whether no utterance is past the frame limit of a fused
-    processor: the pitch tracker has its own frame grid and limit, so
-    every fused processor is checked, not just the features one."""
+    """Whether the fused pass 1 takes this configuration: Kaldi pitch
+    if any, and no utterance past the frame limit of a fused processor
+    (the pitch tracker has its own frame grid and limit, so every fused
+    processor is checked, not just the features one)."""
+    if manager.config.get('pitch', {}).get('processor', 'kaldi') != 'kaldi':
+        return False
     first = utterances[0]
     procs = [manager.make('features', first)]
     if 'pitch' in manager.config:
@@ -475,7 +481,8 @@ def _stagewise_pass_one(manager, utterances, device, generator, log,
     with_pitch = 'pitch' in config
     # the sweeps stream the same audio: the first uploads it, the
     # others replay it
-    if cache is None and (with_vad or with_pitch):
+    if cache is None and (with_vad or (
+            with_pitch and config['pitch']['processor'] == 'kaldi')):
         cache = SignalCache(device=device)
 
     log.debug('stage-wise pass 1: %s', manager.features)
@@ -499,7 +506,19 @@ def _stagewise_pass_one(manager, utterances, device, generator, log,
                 energies, device=device).items()}
 
     pitches = None
-    if with_pitch:
+    if with_pitch and config['pitch']['processor'] == 'crepe':
+        log.debug('stage-wise pass 1: crepe pitch')
+        # CREPE batches by its own frame grid and loads its own audio;
+        # its post-processing decides the voicing per utterance
+        raw = manager.make('pitch', first).process_all(
+            utterances, device=device)
+        post = manager.make('pitch_post')
+        with torch.profiler.record_function('crepe.post'):
+            pitches = {
+                name: post.process(
+                    raw[name], device=device, generator=generator)
+                for name in raw}
+    elif with_pitch:
         log.debug('stage-wise pass 1: pitch')
         raw = BatchExecutor(
             manager.make('pitch', first), device=device).process_all(
@@ -548,7 +567,8 @@ def _extract_pass_one(utterance, manager, device, generator, log):
 
     pitch = None
     if 'pitch' in manager.config:
-        log.debug('%s: extract kaldi pitch', utterance.name)
+        log.debug('%s: extract %s pitch', utterance.name,
+                  manager.config['pitch']['processor'])
         pitch = manager.make('pitch', utterance).process(
             audio, device=device)
         pitch = manager.make('pitch_post').process(pitch, **random)

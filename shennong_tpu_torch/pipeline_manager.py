@@ -5,7 +5,6 @@ methods the port calls): map YAML sections to the port's processor
 classes, scan the corpus' audio metadata, share the framing parameters
 across stages, and keep the CMVN state as a dict of plain
 ``[2, dim+1]`` statistics arrays keyed by speaker or utterance.
-Processors not yet ported raise.
 """
 
 import datetime
@@ -17,11 +16,6 @@ import numpy as np
 from shennong_tpu_torch.audio import Audio
 from shennong_tpu_torch.logger import get_logger
 from shennong_tpu_torch.ops.postops import accumulate_cmvn_stats
-
-#: the config sections whose processors are ported
-PORTED = ('spectrogram', 'filterbank', 'mfcc', 'plp', 'energy',
-          'kaldi_pitch', 'kaldi_pitch_post', 'cmvn', 'sliding_window_cmvn',
-          'delta', 'vad', 'ubm', 'vtln')
 
 
 class PipelineManager:
@@ -153,10 +147,6 @@ class PipelineManager:
             module_kind, class_name = cls.valid_processors[name]
         except KeyError:
             raise ValueError(f'invalid processor "{name}"') from None
-        if name not in PORTED:
-            raise NotImplementedError(
-                f'processor "{name}" is not yet ported to '
-                'shennong_tpu_torch')
         module_name = cls._processor_modules.get(name, name)
         module = importlib.import_module(
             f'shennong_tpu_torch.{module_kind}.{module_name}')
@@ -244,9 +234,21 @@ class PipelineManager:
         return proc
 
     def get_audio(self, utterance):
-        """Load an utterance's audio (the port builds no bottleneck
-        stage, whose 8 kHz resampling the reference does here)."""
-        return utterance.load_audio()
+        """Load (and for bottleneck, resample) an utterance's audio."""
+        audio = utterance.load_audio()
+        if self.features != 'bottleneck':
+            return audio
+
+        # the bottleneck nets run at 8 kHz: convert here so every
+        # downstream processor agrees on the rate
+        self.log.debug(
+            'resampling audio from %dHz@%db to %dHz@%db',
+            audio.sample_rate, audio.dtype.itemsize * 8, 8000, 16)
+        audio = audio.resample(8000).astype(np.int16)
+        self._audio_metadata[utterance.audio_file] = Audio._metadata(
+            audio.nchannels, audio.sample_rate,
+            audio.nsamples, audio.duration)
+        return audio
 
     def get_warp(self, utterance):
         """The VTLN warp of this utterance (1.0 when unset)"""

@@ -1,8 +1,8 @@
 """Speech feature extraction processors (Audio -> Features).
 
-The processors ported so far: spectrogram, filterbank, MFCC, PLP
-(with RASTA), frame energy, Kaldi pitch with its post-processor, and
-the UBM-GMM and VTLN trainers.
+The processors: spectrogram, filterbank, MFCC, PLP (with RASTA),
+frame energy, bottleneck features, Kaldi and CREPE pitch with their
+post-processors, and the UBM-GMM and VTLN trainers.
 Imports are lazy (PEP 562), as in :mod:`shennong_tpu.processor`.
 """
 
@@ -14,6 +14,9 @@ _REGISTRY = {
     'EnergyProcessor': 'energy',
     'KaldiPitchProcessor': 'pitch_kaldi',
     'KaldiPitchPostProcessor': 'pitch_kaldi',
+    'CrepePitchProcessor': 'pitch_crepe',
+    'CrepePitchPostProcessor': 'pitch_crepe',
+    'BottleneckProcessor': 'bottleneck',
     'DiagUbmProcessor': 'ubm',
     'VtlnProcessor': 'vtln',
 }

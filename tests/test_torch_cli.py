@@ -195,3 +195,105 @@ def test_extract_vtln(monkeypatch, tmp_path, corpus):
         warp = ref[name].properties['mfcc']['vtln_warp']
         assert saved[name].properties['mfcc']['vtln_warp'] == warp
         assert 0.85 <= warp <= 1.25
+
+
+@pytest.mark.parametrize('args', [
+    ('bottleneck',), ('bottleneck', '--cmvn', '--delta'),
+    ('mfcc', '--pitch', 'crepe'),
+    ('mfcc', '--pitch', 'crepe', '--cmvn', '--delta')])
+@pytest.mark.parametrize('comments', [True, False])
+def test_config_bottleneck_and_crepe(monkeypatch, capsys, args, comments):
+    """``config bottleneck`` and ``config ... --pitch crepe``: the same
+    YAML as the JAX CLI's. Without comments the text is equal; with
+    them every value is, and so is every comment but those of the
+    CREPE capacity and decode parameters, whose docstrings name this
+    package's ``convert-crepe`` command and its CUDA decode."""
+    flags = () if comments else ('--no-comments',)
+    run_cli(monkeypatch, 'config', *args, *flags)
+    ours = capsys.readouterr().out
+    features = args[0]
+    kwargs = dict(
+        with_pitch='crepe' if 'crepe' in args else False,
+        with_cmvn='--cmvn' in args, with_delta='--delta' in args)
+    ref = jpipeline.get_default_config(
+        features, to_yaml=True, yaml_commented=comments, **kwargs)
+    assert yaml.safe_load(ours) == yaml.safe_load(ref)
+    if not comments or 'crepe' not in args:
+        assert ours == ref
+    else:
+        def without_capacity_and_decode(text):
+            kept, skip = [], False
+            for line in text.splitlines():
+                if line.strip().startswith('#'):
+                    skip = skip or any(word in line for word in (
+                        'capacity to use', 'bin decode runs'))
+                    if skip:
+                        continue
+                else:
+                    skip = False
+                kept.append(line)
+            return kept
+
+        assert without_capacity_and_decode(ours) == \
+            without_capacity_and_decode(ref)
+        assert 'speech-features-torch convert-crepe' in ours
+
+
+def keras_checkpoint(path, capacity='small', seed=0):
+    """A keras-layout CREPE checkpoint with seeded tensors, as
+    tests/processor/test_crepe_conversion.py builds it."""
+    import h5py
+    from shennong_tpu_torch.models import crepe
+
+    mult = crepe.CAPACITY_MULTIPLIER[capacity]
+    filters = [f * mult for f in crepe.LAYER_FILTERS]
+    rng = np.random.RandomState(seed)
+    with h5py.File(path, 'w') as fh:
+        cin = 1
+        for i in range(1, 7):
+            cout = filters[i - 1]
+            conv = fh.create_group(f'conv{i}').create_group('layer')
+            conv['kernel:0'] = (
+                rng.randn(crepe.LAYER_WIDTHS[i - 1], 1, cin, cout) * 0.05)
+            conv['bias:0'] = rng.randn(cout) * 0.01
+            bn = fh.create_group(f'conv{i}-BN').create_group('layer')
+            bn['gamma:0'] = np.ones(cout)
+            bn['beta:0'] = np.zeros(cout)
+            bn['moving_mean:0'] = rng.randn(cout) * 0.01
+            bn['moving_variance:0'] = np.ones(cout)
+            cin = cout
+        clf = fh.create_group('classifier').create_group('layer')
+        clf['kernel:0'] = rng.randn(4 * filters[-1], 360) * 0.01
+        clf['bias:0'] = np.zeros(360)
+
+
+@pytest.mark.parametrize('install', [False, True])
+def test_convert_crepe(monkeypatch, capsys, tmp_path, install):
+    """``convert-crepe`` writes what the JAX package's converter reads
+    from the same checkpoint, next to it or (``--install``) into the
+    port's share directory."""
+    pytest.importorskip('h5py')
+    from shennong_tpu.models import crepe as jcrepe
+    from shennong_tpu_torch.models import crepe
+
+    checkpoint = str(tmp_path / 'model-small.h5')
+    keras_checkpoint(checkpoint)
+    share = tmp_path / 'share'
+    share.mkdir()
+    monkeypatch.setattr(crepe, 'SHARE_DIR', str(share))
+    run_cli(monkeypatch, 'convert-crepe', checkpoint,
+            *(('--install',) if install else ()))
+    output = (share if install else tmp_path) / 'model-small.npz'
+    assert str(output) in capsys.readouterr().out
+    ref = jcrepe.convert_keras_h5(checkpoint)
+    with np.load(str(output)) as ours:
+        assert sorted(ours.keys()) == sorted(ref.keys())
+        for key in ref:
+            assert ours[key].dtype == ref[key].dtype
+            assert np.array_equal(ours[key], ref[key]), key
+    assert crepe.available_capacities() == (('small',) if install else ())
+
+    explicit = str(tmp_path / 'elsewhere.npz')
+    run_cli(monkeypatch, 'convert-crepe', checkpoint, '-o', explicit)
+    with np.load(explicit) as ours:
+        assert np.array_equal(ours['conv1/kernel'], ref['conv1/kernel'])

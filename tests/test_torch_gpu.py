@@ -22,7 +22,12 @@ absolute; the iterated EM and LVTLN rounds 1e-4 relative, 1e-3
 absolute), a gaussian selection that differs being a near-tie
 (log-likelihoods within 1e-5 relative), the warp classes equal; and the
 config-4 slice (a ``vtln`` section) on the card against the CPU (warps
-equal, features 1e-3).
+equal, features 1e-3). The banded Viterbi kernel of the CREPE device
+decode is held against its plain version on the card (paths equal,
+over repeated launches too), the CREPE CNN and the bottleneck network
+and filterbank on the card against the CPU (1e-4, float32 convolutions
+and products summing in other orders), and the CREPE processor's host
+and device decodes on the card against the CPU.
 """
 
 import copy
@@ -476,3 +481,136 @@ def test_vtln_slice_matches_cpu(cuda_device, corpus):
         assert on_cuda[name].shape == on_cpu[name].shape
         assert np.isfinite(on_cuda[name].data).all()
         assert np.abs(on_cuda[name].data - on_cpu[name].data).max() < 1e-3
+
+
+# ------------------------------------------------ CREPE and bottleneck
+
+BANDED_CASES = [
+    # the corpus slice of the device decode and one chunk-long row
+    ((16, 1024, 360, 11), [1024] * 8 + [1, 0, 2, 1023, 700, 64, 5, 1000]),
+    ((1, 8192, 360, 11), [8192]),
+    # few states (one warp), a wide band and many states
+    ((3, 200, 30, 11), [200, 1, 150]),
+    ((2, 300, 1000, 3), [300, 299]),
+    ((4, 50, 360, 63), [50, 0, 49, 25]),
+]
+
+
+def banded_inputs(shape, seed=0):
+    """Observations along wandering tracks with jumps and plateaus,
+    and the CREPE-like banded prior of ``nstates`` and ``halfwidth``."""
+    from shennong_tpu_torch.ops.viterbi import _band_matrix
+
+    rows, frames, nstates, halfwidth = shape
+    rng = np.random.RandomState(seed)
+    obs = np.cumsum(rng.randint(-3, 4, (rows, frames)), axis=1) + nstates // 2
+    obs[0, frames // 3:frames // 2] = obs[0, frames // 3]
+    obs[-1] = rng.randint(0, nstates, frames)
+    obs = np.clip(obs, 0, nstates - 1).astype(np.int32)
+    grid = np.arange(nstates)
+    trans = np.maximum(halfwidth + 1 - np.abs(grid[:, None] - grid), 0)
+    with np.errstate(divide='ignore'):
+        log_trans = np.log(trans / trans.sum(axis=1, keepdims=True))
+    uniform, self_w = np.log(0.9 / nstates), np.log(0.1 + 0.9 / nstates)
+    return (obs, np.full(nstates, -np.log(nstates)),
+            _band_matrix(log_trans, halfwidth), uniform, self_w)
+
+
+@pytest.mark.parametrize('shape,bounds', BANDED_CASES)
+def test_banded_viterbi_matches_plain(cuda_device, shape, bounds):
+    from shennong_tpu_torch.ops import viterbi
+
+    obs, log_start, band, uniform, self_w = banded_inputs(shape)
+    halfwidth = shape[3]
+    obs_t = torch.from_numpy(obs).to(cuda_device)
+    counts = torch.tensor(bounds, dtype=torch.int32, device=cuda_device)
+    viterbi.reset_launches()
+    paths = viterbi.viterbi_banded_obs_batch(
+        log_start, band, uniform, self_w, obs_t, counts, halfwidth)
+    assert viterbi.LAUNCHES['banded_viterbi'] == 1
+    plain = viterbi.viterbi_banded_obs_batch_plain(
+        torch.as_tensor(log_start, dtype=torch.float32, device=cuda_device),
+        torch.as_tensor(band, dtype=torch.float32, device=cuda_device),
+        uniform, self_w, obs_t, counts, halfwidth)
+    torch.cuda.synchronize()
+    assert torch.equal(paths, plain)
+    for _ in range(2):
+        assert torch.equal(viterbi.viterbi_banded_obs_batch(
+            log_start, band, uniform, self_w, obs_t, counts, halfwidth),
+            paths)
+    # on the CPU, the plain version gives the same paths
+    cpu = viterbi.viterbi_banded_obs_batch(
+        log_start, band, uniform, self_w, torch.from_numpy(obs),
+        torch.tensor(bounds, dtype=torch.int32), halfwidth)
+    assert torch.equal(paths.cpu(), cpu)
+
+
+def test_crepe_network_matches_cpu(cuda_device):
+    from shennong_tpu_torch.models import crepe
+
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    frames = torch.from_numpy(
+        np.random.RandomState(0).randn(64, 1024).astype(np.float32))
+    with torch.no_grad():
+        cpu = crepe.load_model('tiny', 'cpu')(frames)
+        gpu = crepe.load_model('tiny', cuda_device)(frames.to(cuda_device))
+    assert float((gpu.cpu() - cpu).abs().max()) < 1e-4
+
+
+def test_crepe_processor_matches_cpu(cuda_device):
+    """process_all on the card against the CPU: host decode 1e-3 (the
+    salience within 1e-4 gives the same bins here), device decode
+    through the kernel with the same bins as the plain version."""
+    from shennong_tpu_torch.ops import viterbi
+    from shennong_tpu_torch.processor.pitch_crepe import CrepePitchProcessor
+
+    utterances = Utterances([
+        ('u1', REAL_WAV, 0.0, 0.7), ('u2', REAL_WAV, 0.3, 1.4),
+        ('u3', REAL_WAV, 0.0, 1.41)])
+    for decode in ('host', 'device'):
+        proc = CrepePitchProcessor(model_capacity='tiny', decode=decode)
+        viterbi.reset_launches()
+        gpu = proc.process_all(utterances, device=cuda_device)
+        # one launch per slice with the device decode, none with the host's
+        assert (viterbi.LAUNCHES['banded_viterbi'] > 0) == (
+            decode == 'device')
+        cpu = proc.process_all(utterances, device='cpu')
+        for name in cpu.keys():
+            assert gpu[name].shape == cpu[name].shape
+            assert np.abs(gpu[name].data - cpu[name].data).max() < 1e-3
+
+
+def test_bottleneck_network_matches_cpu(cuda_device):
+    from shennong_tpu_torch.models import bottleneck
+    from shennong_tpu_torch.weights import bottleneck_from_numpy
+
+    rng = np.random.RandomState(0)
+    params = {'context': np.int64(15), 'input_mean': rng.randn(144) * 0.1,
+              'input_std': rng.rand(144) + 0.5,
+              'bn_mean': rng.randn(400) * 0.1, 'bn_std': rng.rand(400) + 0.5}
+    for name, (nin, nout) in {
+            'W1': (144, 1500), 'W2': (1500, 1500), 'W3': (1500, 80),
+            'W5': (400, 1500), 'W6': (1500, 1500), 'W7': (1500, 1500),
+            'W8': (1500, 80)}.items():
+        params[name] = rng.randn(nin, nout) / np.sqrt(nin)
+        params['b' + name[1:]] = rng.randn(nout) * 0.1
+    tensors, _ = bottleneck_from_numpy(params)
+    x = torch.from_numpy(rng.randn(4, 600, 144).astype(np.float32))
+    cpu = bottleneck.stacked_bn_forward(tensors, x)
+    gpu = bottleneck.stacked_bn_forward(
+        {k: v.to(cuda_device) for k, v in tensors.items()},
+        x.to(cuda_device))
+    assert float((gpu.cpu() - cpu).abs().max()) < 1e-4
+
+    signal = torch.from_numpy(
+        (rng.randn(80000) * 3000).astype(np.float32))
+    frames = bottleneck.frame_signal(signal, 200, 80)
+    bank = torch.from_numpy(bottleneck.mel_filterbank_htk(
+        200, 8000, 24, 64.0, 3800.0))
+    window = torch.from_numpy(np.hamming(200).astype(np.float32))
+    cpu = bottleneck.fbank_htk(frames, window, bank, 256)
+    gpu = bottleneck.fbank_htk(
+        frames.to(cuda_device), window.to(cuda_device), bank.to(cuda_device),
+        256)
+    assert float((gpu.cpu() - cpu).abs().max()) < 1e-4

@@ -6,7 +6,10 @@
 2. With both blocked in ``sys.modules``, a child process imports the
    port, runs a small MFCC + Kaldi pitch + CMVN + delta
    ``extract_features(device='cpu')``, imports the UBM/VTLN trainers
-   and the parameter carriers, and runs the CLI's ``config --vtln``.
+   and the parameter carriers, runs CREPE pitch (its CNN, host and
+   device decodes) and the bottleneck front end, imports the rest of
+   the CREPE and bottleneck modules, and runs the CLI's ``config
+   --vtln`` and ``config bottleneck``.
 3. The port's own host layer writes the same files as the JAX
    package's: a ``FeaturesCollection`` saved by either loads in the
    other with equal arrays, dtypes and properties.
@@ -80,8 +83,17 @@ def test_runs_with_the_jax_package_blocked(tmp_path):
     config = str(tmp_path / 'config.yaml')
     script = f'''
 import sys
-for name in {BLOCKED!r}:
-    sys.modules[name] = None
+
+
+class Blocked:
+    # refuse the imports (scipy probes sys.modules for jax, so the
+    # blocked packages stay out of it rather than mapped to None)
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in {BLOCKED!r}:
+            raise ImportError(f'{{name}} is blocked')
+
+
+sys.meta_path.insert(0, Blocked())
 import numpy as np
 from shennong_tpu_torch import Utterances, pipeline
 from shennong_tpu_torch.cli import main
@@ -94,6 +106,28 @@ assert np.isfinite(out['a'].data).all()
 from shennong_tpu_torch import kaldiio, weights
 from shennong_tpu_torch.processor.vtln import VtlnProcessor
 assert VtlnProcessor().get_params()['ubm']['num_gauss'] == 64
+from shennong_tpu_torch.audio import Audio
+from shennong_tpu_torch.models import bottleneck, crepe  # noqa: F401
+from shennong_tpu_torch.ops import viterbi  # noqa: F401
+from shennong_tpu_torch.processor import (
+    BottleneckProcessor, CrepePitchPostProcessor, CrepePitchProcessor)
+audio = Audio.load({wav!r})
+for decode in ('host', 'device'):
+    pitch = CrepePitchProcessor(
+        model_capacity='tiny', decode=decode).process_all(
+            Utterances([('a', {wav!r})]), device='cpu')['a']
+    assert pitch.shape == (148, 2), pitch.shape
+post = CrepePitchPostProcessor().process(pitch, device='cpu')
+assert post.shape == (148, 3) and np.isfinite(post.data).all()
+import torch
+frames = bottleneck.frame_signal(torch.as_tensor(
+    audio.resample(8000).data, dtype=torch.float32), 200, 80)
+fbank = bottleneck.fbank_htk(
+    frames, torch.ones(200), torch.as_tensor(bottleneck.mel_filterbank_htk(
+        200, 8000, 24, 64.0, 3800.0)), 256)
+assert fbank.shape == (148, 24) and BottleneckProcessor().ndims == 80
+sys.argv = ['speech-features-torch', 'config', 'bottleneck', '--cmvn']
+main()
 sys.argv = ['speech-features-torch', 'config', 'mfcc', '--pitch', 'kaldi',
             '--cmvn', '--delta', '--vtln', 'simple', '-o', {config!r}]
 main()
@@ -106,7 +140,8 @@ print('ok')
         [sys.executable, '-c', script], cwd=REPO, capture_output=True,
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == 'ok'
+    assert proc.stdout.strip().endswith('ok')
+    assert 'bottleneck:' in proc.stdout
     with open(config) as stream:
         text = stream.read()
     assert 'mfcc:' in text and 'pitch:' in text and 'delta:' in text

@@ -108,14 +108,18 @@ def test_config_roundtrip_yaml():
 @pytest.mark.parametrize('features,pitch', [
     ('bottleneck', False), ('plp', 'crepe'), ('mfcc', 'crepe')])
 def test_not_ported_raises(features, pitch):
-    with pytest.raises(NotImplementedError):
-        pipeline.get_default_config(features, with_pitch=pitch)
+    """The configurations that raised NotImplementedError before CREPE
+    and bottleneck were ported: they build now, equal to the JAX
+    package's, and nothing raises."""
+    assert pipeline.get_default_config(features, with_pitch=pitch) == \
+        jpipeline.get_default_config(features, with_pitch=pitch)
 
 
 def test_manager_resolves_port_classes():
     for name in ('spectrogram', 'filterbank', 'mfcc', 'plp', 'energy',
                  'kaldi_pitch', 'kaldi_pitch_post', 'cmvn',
-                 'sliding_window_cmvn', 'delta', 'vad'):
+                 'sliding_window_cmvn', 'delta', 'vad', 'bottleneck',
+                 'crepe_pitch', 'crepe_pitch_post', 'ubm', 'vtln'):
         cls = PipelineManager.get_processor_class(name)
         assert cls.__module__.startswith('shennong_tpu_torch.'), name
     with pytest.raises(ValueError):
