@@ -8,7 +8,9 @@ against its plain PyTorch version on the card (the pitch Viterbi at the
 corpus batch [64, 598, 417], edge shapes, the chunk shape of
 hour-scale pitch and the 12-minute whole run [1, 71998, 417]; the
 banded Viterbi of the CREPE device decode at its slice shape [33, 490,
-360], [16, 1024, 360] and [1, 8192, 360]), prints each kernel's
+360], [16, 1024, 360] and [1, 8192, 360]; the ABX evaluator's DTW at
+the benchmark's [4096, 24, 24], [512, 64, 64] and [1, 300, 280]),
+prints each kernel's
 cluster size, registers and spills, milliseconds, time per frame,
 bound and share of the bound, checks the processors against
 ``tests/data/golden_real.npz``
@@ -47,11 +49,16 @@ generated corpus of 256 utterances (4 s and 6 s, 16 speakers):
 - bottleneck features (BASELINE config 5) with seeded weights at
   BabelMulti's widths: ``process_all`` over the corpus (profiled:
   host front end, device forward), ``extract_features`` with CMVN on
-  16 utterances, and the card against the CPU on 8 utterances.
+  16 utterances, and the card against the CPU on 8 utterances;
+- the ABX benchmark (``eval/abx_bench.py``, the port's quality
+  anchor): 'ci' with mfcc and rastaplp on the card and on the CPU
+  (errors against each other and the recorded values, warps), then
+  'full' mfcc on the card (its wall by stage, DTW pairs a second, the
+  mfcc row against ``doc/performance.md``, a profiled run).
 
 The three Kaldi-pitch slices and the long-audio run must go through
 both pitch Viterbi kernels, the CREPE device decode through the banded
-one. Every phase prints
+one, the ABX runs through the DTW kernel. Every phase prints
 its lines; any failure raises and the script exits non-zero. The
 second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is the JSON verdict.
@@ -112,6 +119,29 @@ def cuda_ms(fn, repeats):
     return start.elapsed_time(stop) / repeats
 
 
+def kernel_device_ms(fn, repeats, kernel):
+    """Mean device milliseconds a launch of the kernels whose name holds
+    ``kernel`` over ``repeats`` calls of ``fn()`` (torch.profiler, after
+    one warm-up call): the kernel alone, where CUDA events around the
+    calls would also time the host's enqueue of a short kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in events)
+    check(count == repeats, f'the profiler saw {count} launches of {kernel}, '
+          f'not {repeats}')
+    return sum(e.self_device_time_total for e in events) / 1e3 / count
+
+
 # ------------------------------------------------------------------ probe
 
 def probe():
@@ -138,21 +168,22 @@ PEAK_BYTES = 3.35e12
 
 
 def build_kernels():
-    """Build csrc/viterbi.cu and csrc/banded_viterbi.cu afresh, one nvcc
-    for each source, started together; returns ptxas's (registers, spill
-    stores, spill loads) by kernel instantiation, e.g.
-    'viterbi_forward<7>' or 'banded_viterbi'."""
+    """Build csrc/viterbi.cu, csrc/banded_viterbi.cu and csrc/dtw.cu
+    afresh, one nvcc for each source, started together; returns ptxas's
+    (registers, spill stores, spill loads) by kernel instantiation, e.g.
+    'viterbi_forward<7>', 'banded_viterbi' or 'dtw'."""
     import concurrent.futures
 
-    from shennong_tpu_torch.ops import cuda_viterbi, viterbi
+    from shennong_tpu_torch.ops import cuda_viterbi, dtw, viterbi
 
     start = time.perf_counter()
-    sources = (cuda_viterbi._SOURCE, viterbi._SOURCE)
+    sources = (cuda_viterbi._SOURCE, viterbi._SOURCE, dtw._SOURCE)
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(
             lambda source: cuda_viterbi.build(source, fresh=True), sources))
     cuda_viterbi._load()
     viterbi._load()
+    dtw._load()
     seconds = time.perf_counter() - start
     say('build', ', '.join(os.path.relpath(path, HERE) for path, _ in built)
         + f' in {seconds:.2f} s (one nvcc each, in parallel)')
@@ -166,6 +197,8 @@ def build_kernels():
                 current = f'{entry.group(1)}<{entry.group(2)}>'
             elif 'banded_viterbi_kernel' in line:
                 current = 'banded_viterbi'
+            elif 'dtw_kernel' in line:
+                current = 'dtw'
             spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
                               r'loads', line)
             if spill:
@@ -174,8 +207,8 @@ def build_kernels():
             if used and current:
                 resources[current] = (int(used.group(1)),) + spills
                 current = None
-    check('banded_viterbi' in resources,
-          'no ptxas resources for banded_viterbi_kernel')
+    for name in ('banded_viterbi', 'dtw'):
+        check(name in resources, f'no ptxas resources for {name}_kernel')
     for name, (registers, stores, loads) in sorted(resources.items()):
         say('build', f'ptxas {name}: {registers} registers, spill stores '
             f'{stores} B, spill loads {loads} B')
@@ -1793,6 +1826,352 @@ def bottleneck_phase(card, workdir, entries):
     say(phase, f'phase time {time.perf_counter() - begin:.1f} s')
 
 
+# ------------------------------------------------------- ABX: the DTW kernel
+
+DTW_TOL = 1e-5           # kernel vs plain on real-valued costs
+DTW_TIE_SHARE = 1e-3     # most near-ties accepted: one in 1000 pairs
+
+
+def dtw_bound(nx, ny):
+    """(ms, 'operations' or 'bytes'): the least time an H100 SXM could
+    take for the DTW divergences of pairs of ``nx`` x ``ny`` valid
+    frames. Bytes: the valid cells' costs read once, the two counts
+    read and the divergence written (12 bytes a pair); operations:
+    about 4 a valid cell (an add, two lexicographic compares, the
+    length's add)."""
+    cells = float(np.sum(np.asarray(nx, np.float64) * np.asarray(ny)))
+    by_ops = 4 * cells / PEAK_FLOPS_FP32
+    by_bytes = (4 * cells + 12 * len(nx)) / PEAK_BYTES
+    if by_ops >= by_bytes:
+        return by_ops * 1e3, 'operations'
+    return by_bytes * 1e3, 'bytes'
+
+
+def dtw_near_tie(costs, n, m, div_a, div_b):
+    """Whether two float32 divergences of one pair are a near-tie of
+    two path lengths, proven in float64.
+
+    ``by_length[L]``, the least float64 cost of the paths of L cells,
+    is computed for every L. ``r`` bounds the float32 rounding of a
+    path's cost in either version: the kernel adds at most ``L_max = n
+    + m - 1`` costs one by one (``L_max^2 / 2`` eps max|c|), the plain
+    version takes each of n rows' prefix sums of m costs, subtracts two
+    of them and adds twice (``n (m (m + 1) / 2 + 2 L_max)`` eps
+    max|c|). A length L explains a divergence d when ``by_length[L]``
+    lies within ``2 r`` of the least cost of all paths and ``d L``
+    within ``r`` and d's own rounding of ``by_length[L]``. The two
+    divergences are a near-tie when lengths that differ explain them:
+    a gap between two divergences of one length is a rounding error,
+    not a tie. ``costs`` is the pair's [Ta, Tb] matrix (numpy array or
+    CPU tensor), ``n``, ``m`` its valid counts."""
+    c = np.asarray(costs, np.float64)[:n, :m]
+    longest = n + m - 1
+    # best[i, j, L]: the least cost of the paths of L cells to (i, j)
+    best = np.full((n, m, longest + 1), math.inf)
+    best[0, 0, 1] = c[0, 0]
+    for i in range(n):
+        for j in range(m):
+            if i == 0 and j == 0:
+                continue
+            entry = np.full(longest, math.inf)
+            for a, b in ((i - 1, j), (i - 1, j - 1), (i, j - 1)):
+                if a >= 0 and b >= 0:
+                    entry = np.minimum(entry, best[a, b, :-1])
+            best[i, j, 1:] = entry + c[i, j]
+    by_length = best[n - 1, m - 1]
+    eps = float(np.finfo(np.float32).eps)
+    rounding = max(longest ** 2 / 2, n * (m * (m + 1) / 2 + 2 * longest)) \
+        * eps * float(np.abs(c).max())
+    tied = np.flatnonzero(by_length <= by_length.min() + 2 * rounding)
+
+    def explaining(div):
+        return {int(length) for length in tied
+                if abs(div * length - by_length[length])
+                <= rounding + length * abs(div) * eps}
+
+    return any(a != b for a in explaining(float(div_a))
+               for b in explaining(float(div_b)))
+
+
+def dtw_against_plain(costs, nx, ny, div, reference):
+    """The DTW kernel's divergences ``div`` against the plain version's
+    ``reference`` on the same pairs: (max-abs gap off the near-ties,
+    the near-ties, their max-abs gap, what failed). A pair past DTW_TOL
+    fails unless it is a proven near-tie (:func:`dtw_near_tie`), and
+    the near-ties fail when they pass DTW_TIE_SHARE of the pairs (one
+    is always allowed)."""
+    gaps = (div - reference).abs().cpu()
+    ties, failed = [], []
+    for b in torch.nonzero(gaps > DTW_TOL)[:, 0].tolist():
+        if dtw_near_tie(costs[b].cpu(), int(nx[b]), int(ny[b]),
+                        float(div[b]), float(reference[b])):
+            ties.append(b)
+        else:
+            failed.append(f'pair {b}: {float(div[b])} against '
+                          f'{float(reference[b])}, not a near-tie')
+    allowed = max(1, int(DTW_TIE_SHARE * len(gaps)))
+    if len(ties) > allowed:
+        failed.append(f'{len(ties)} near-ties in {len(gaps)} pairs, more '
+                      f'than {allowed}')
+    tie_gap = float(gaps[ties].max()) if ties else 0.0
+    gaps[ties] = 0.0
+    return float(gaps.max()), len(ties), tie_gap, failed
+
+
+def dtw_kernel_phase(resources):
+    """The DTW kernel against its plain version on the card: at the ABX
+    benchmark's [4096, 24, 24] (13-dimensional segments, both metrics,
+    full and ragged counts from 1), [512, 64, 64], one [1, 300, 280]
+    pair (within DTW_TOL), and integer-valued costs with ties at [4096,
+    24, 24] and [64, 40, 70] (torch.equal); repeated launches equal.
+    A pair past DTW_TOL must be a near-tie of two path lengths, proven
+    in float64, and at most DTW_TIE_SHARE of a case's pairs may be
+    (dtw_against_plain). Timed at every shape: the kernel's device time
+    a launch (profiler), a wrapper call and the plain version (CUDA
+    events). The costs stay warm in L2 between launches, as in
+    pairwise_distances, where the batched product writes them just
+    before. Returns (max-abs error off the near-ties, times at the
+    benchmark's cosine shape, the near-ties' count and max-abs gap for
+    the kernels' JSON line)."""
+    from shennong_tpu_torch.eval import abx
+    from shennong_tpu_torch.ops import dtw
+
+    phase = 'dtw kernel'
+    begin = time.perf_counter()
+    rng = np.random.RandomState(7)
+    error, timed = 0.0, None
+    near_ties, near_tie_gap = 0, 0.0
+
+    def counts(size, limit, ragged):
+        values = (rng.randint(1, limit + 1, size) if ragged
+                  else np.full(size, limit))
+        values[0] = limit
+        return torch.tensor(values, dtype=torch.int32, device='cuda')
+
+    cases = []
+    for label, (bsz, rows, cols), ragged, metric in (
+            ('benchmark', (4096, 24, 24), False, 'cosine'),
+            ('benchmark', (4096, 24, 24), False, 'euclidean'),
+            ('ragged', (4096, 24, 24), True, 'cosine'),
+            ('strips', (512, 64, 64), True, 'cosine'),
+            ('long pair', (1, 300, 280), False, 'cosine')):
+        x = torch.from_numpy(
+            rng.randn(bsz, rows, 13).astype(np.float32)).cuda()
+        y = torch.from_numpy(
+            rng.randn(bsz, cols, 13).astype(np.float32)).cuda()
+        cases.append((f'{label} {metric}', abx._frame_costs(x, y, metric),
+                      counts(bsz, rows, ragged), counts(bsz, cols, ragged),
+                      False))
+    for bsz, rows, cols in ((4096, 24, 24), (64, 40, 70)):
+        costs = torch.from_numpy(
+            rng.randint(0, 3, (bsz, rows, cols)).astype(np.float32)).cuda()
+        cases.append(('integer costs', costs, counts(bsz, rows, True),
+                      counts(bsz, cols, True), True))
+
+    for label, costs, nx, ny, exact in cases:
+        shape = tuple(costs.shape)
+
+        def kernel():
+            return dtw.dtw_divergences(costs, nx, ny)
+
+        def plain():
+            return dtw.dtw_divergences_plain(costs, nx, ny)
+
+        div, reference = kernel(), plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(div).all()), f'dtw: {label} not finite')
+        if exact:
+            gap = float((div - reference).abs().max())
+            check(torch.equal(div, reference),
+                  f'dtw: {label} at {shape} differs from the plain version '
+                  f'({gap})')
+        else:
+            gap, ties, tie_gap, failed = dtw_against_plain(
+                costs, nx, ny, div, reference)
+            check(not failed, f'dtw: {label} at {shape}: ' + '; '.join(failed))
+            error = max(error, gap)
+            near_ties += ties
+            near_tie_gap = max(near_tie_gap, tie_gap)
+        for _ in range(3):
+            check(torch.equal(kernel(), div),
+                  f'dtw: {label} at {shape} changed between launches')
+        ms = kernel_device_ms(kernel, 20, 'dtw_kernel')
+        call_ms = cuda_ms(kernel, 20)
+        plain_ms = cuda_ms(plain, 3)
+        bound_ms, bound_by = dtw_bound(nx.cpu().numpy(), ny.cpu().numpy())
+        registers, stores, loads = resources['dtw']
+        say(phase, f'{label} {shape}, counts {int(nx.min())}-{int(nx.max())}'
+            f' x {int(ny.min())}-{int(ny.max())}: '
+            + ('equal to' if exact else
+               f'max-abs {gap:.3g} ({ties} proven near-ties apart, '
+               f'max-abs {tie_gap:.3g}) from')
+            + f' the plain version, repeated launches equal; kernel '
+            f'{ms:.4f} ms (profiler, device time a launch), a call '
+            f'{call_ms:.4f} ms and plain {plain_ms:.3f} ms (CUDA events, '
+            f'costs warm in L2); {registers} registers, spills '
+            f'{stores}/{loads} B; bound {bound_ms:.5f} ms by {bound_by}, '
+            f'share of bound {bound_ms / ms:.4f}')
+        if timed is None:
+            timed = (ms, plain_ms, bound_ms, bound_by)
+    say(phase, f'phase time {time.perf_counter() - begin:.1f} s')
+    return error, timed, {'near_ties': near_ties,
+                          'near_tie_max_abs_err': near_tie_gap}
+
+
+# ------------------------------------------------------- ABX: the benchmark
+
+ABX_DEVICE_TOL = 0.005   # card vs CPU on every ci error
+ABX_CI_BAND = 0.030      # the magnitude locks of tests/test_abx_bench.py
+ABX_FULL_BAND = 0.010    # the mfcc row of doc/performance.md
+ABX_CI = {               # tests/test_abx_bench.py:35-42, 61-65
+    ('across', 'mfcc'): {'raw': 0.339, '+cmvn': 0.207, 'vtln+cmvn': 0.171},
+    ('within', 'mfcc'): {'raw': 0.308, '+cmvn': 0.259, 'vtln+cmvn': 0.252},
+    ('across', 'rastaplp'): {'raw': 0.200, '+cmvn': 0.172,
+                             'vtln+cmvn': 0.135},
+    ('within', 'rastaplp'): {'raw': 0.160, '+cmvn': 0.139},
+}
+ABX_FULL = {             # doc/performance.md:343-361, seed 0
+    'across': {'raw': 0.184, '+cmvn': 0.139, 'vtln+cmvn': 0.082},
+    'within': {'raw': 0.110, '+cmvn': 0.109, 'vtln+cmvn': 0.109},
+}
+
+
+def abx_errors_line(errors, feature):
+    return '; '.join(
+        f'{task} ' + ' / '.join(
+            f'{label} {100 * value:.2f}'
+            for label, value in errors[task][feature].items())
+        for task in ('across', 'within'))
+
+
+def abx_phase(card):
+    """The ABX benchmark (the port's quality anchor): 'ci' with mfcc and
+    rastaplp on the card and on the CPU (every error within
+    ABX_DEVICE_TOL of the CPU's and ABX_CI_BAND of the recorded values,
+    their directions, the warps equal for every speaker), then 'full'
+    mfcc on the card: its wall split by stage, DTW pairs a second, the
+    DTW kernel's launches, the mfcc row against doc/performance.md
+    (ABX_FULL_BAND), and a profiled run for the kernel's device time.
+    Returns the DTW kernel's launches in the 'ci' and 'full' runs on
+    the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from shennong_tpu_torch.eval import abx_bench
+    from shennong_tpu_torch.ops import dtw
+
+    phase = 'abx'
+    begin = time.perf_counter()
+    ci = {}
+    launches = 0
+    for device in ('cuda', 'cpu'):
+        dtw.reset_launches()
+        start = time.perf_counter()
+        ci[device] = abx_bench.benchmark(
+            'ci', seed=0, features=('mfcc', 'rastaplp'), device=device)
+        wall = time.perf_counter() - start
+        count = dtw.LAUNCHES['dtw']
+        if device == 'cuda':
+            launches += count
+            check(count >= 6, f'abx ci: {count} DTW kernel launches')
+        else:
+            check(count == 0, 'abx ci on the cpu launched the DTW kernel')
+        for feature in ('mfcc', 'rastaplp'):
+            say(phase, f'ci on {device}, {feature} (%): '
+                + abx_errors_line(ci[device]['errors'], feature))
+        say(phase, f'ci on {device}: wall {wall:.2f} s ('
+            + ', '.join(f'{stage} {seconds:.2f}' for stage, seconds
+                        in ci[device]['seconds'].items())
+            + f'), DTW kernel launches {count}')
+
+    gap = 0.0
+    for (task, feature), recorded in ABX_CI.items():
+        for label, value in recorded.items():
+            got = ci['cuda']['errors'][task][feature][label]
+            cpu = ci['cpu']['errors'][task][feature][label]
+            gap = max(gap, abs(got - cpu))
+            check(abs(got - cpu) < ABX_DEVICE_TOL,
+                  f'abx ci {task} {feature} {label}: cuda {got} cpu {cpu}')
+            check(abs(got - value) < ABX_CI_BAND,
+                  f'abx ci {task} {feature} {label}: {got} not within '
+                  f'{ABX_CI_BAND} of {value}')
+        errors = ci['cuda']['errors'][task][feature]
+        check(errors['raw'] > errors['+cmvn'],
+              f'abx ci {task} {feature}: cmvn does not help')
+        if task == 'across':
+            check(errors['+cmvn'] > errors['vtln+cmvn'],
+                  f'abx ci across {feature}: vtln does not help')
+    warps, alphas = ci['cuda']['warps'], ci['cuda']['alphas']
+    differ = sorted(s for s in warps if warps[s] != ci['cpu']['warps'][s])
+    check(not differ, f'abx ci: warps differ between cuda and cpu for '
+          f'{differ}: {warps} vs {ci["cpu"]["warps"]}')
+    ordered = [warps[s] for s in sorted(alphas, key=alphas.get)]
+    check(all(a >= b for a, b in zip(ordered, ordered[1:])),
+          f'abx ci: warps not monotone in alpha: {ordered}')
+    say(phase, f'ci: cuda vs cpu max error gap {gap:.5f} < '
+        f'{ABX_DEVICE_TOL}, every error within {ABX_CI_BAND} of the '
+        f'recorded values, directions hold; warps equal for '
+        f'{len(warps)} of {len(warps)} speakers, by alpha '
+        + ', '.join(f'{alphas[s]:.3f}:{warps[s]}'
+                    for s in sorted(alphas, key=alphas.get)))
+
+    dtw.reset_launches()
+    start = time.perf_counter()
+    full = abx_bench.benchmark('full', seed=0, features=('mfcc',),
+                               device='cuda')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    count = dtw.LAUNCHES['dtw']
+    launches += count
+    pairs = full['nsegments'] * (full['nsegments'] - 1) // 2
+    conditions = len(full['errors']['across']['mfcc'])
+    check(count >= conditions * -(-pairs // 4096),
+          f'abx full: {count} DTW kernel launches')
+    say(phase, 'full on cuda, mfcc (%): '
+        + abx_errors_line(full['errors'], 'mfcc'))
+    say(phase, f'full on cuda: {full["nsegments"]} segments, {pairs} pairs '
+        f'per condition, {conditions} conditions; wall {wall:.2f} s ('
+        + ', '.join(f'{stage} {seconds:.2f}'
+                    for stage, seconds in full['seconds'].items())
+        + f'); DTW {conditions * pairs / full["seconds"]["dtw"]:.0f} pairs '
+        f'a second; DTW kernel launches {count} on {card}')
+    for task, recorded in ABX_FULL.items():
+        for label, value in recorded.items():
+            got = full['errors'][task]['mfcc'][label]
+            check(abs(got - value) < ABX_FULL_BAND,
+                  f'abx full {task} mfcc {label}: {got} not within '
+                  f'{ABX_FULL_BAND} of {value}')
+    say(phase, f'full: the mfcc row within {ABX_FULL_BAND} of '
+        'doc/performance.md')
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        abx_bench.benchmark('full', seed=0, features=('mfcc',),
+                            device='cuda')
+        torch.cuda.synchronize()
+    # the spans appear on the device too, as annotations, not kernels
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.key not in SPANS + (RUN_SPAN,)]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    dtw_ms = sum(e.self_device_time_total for e in kernels
+                 if 'dtw_kernel' in e.key) / 1e3
+    dtw_count = sum(e.count for e in kernels if 'dtw_kernel' in e.key)
+    if not busy:
+        say(phase, 'full profile: device time not measured (the profiler '
+            'saw no kernels)')
+    else:
+        say(phase, f'full profile: device busy {busy:.3f} ms of '
+            f'{wall * 1e3:.1f} ms unprofiled wall (idle share '
+            f'{1 - busy / (wall * 1e3):.3f}); dtw_kernel x{dtw_count} '
+            f'{dtw_ms:.3f} ms')
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+            say(phase, f'{e.self_device_time_total / 1e3:9.3f} ms  '
+                f'x{e.count:<5d} {e.key[:90]}')
+    say(phase, f'phase time {time.perf_counter() - begin:.1f} s')
+    return launches
+
+
 #: the port's profiler spans (torch.profiler.record_function)
 SPANS = ('pass1.dispatch', 'pass1.wait', 'batch.dispatch', 'batch.wait',
          'batch.chunked', 'pass2', 'plp.rasta', 'plp.durbin', 'ubm.frontend',
@@ -1885,6 +2264,7 @@ def main():
     errors, times = kernels_vs_plain(resources)
     errors['banded_viterbi'], times['banded_viterbi'] = banded_kernel_phase(
         resources)
+    errors['dtw'], times['dtw'], dtw_ties = dtw_kernel_phase(resources)
     goldens()
     workdir = os.path.join(HERE, 'build', 'chip_smoke_corpus')
     launches = {'viterbi_forward': 0, 'viterbi_backtrace': 0}
@@ -1905,6 +2285,7 @@ def main():
         launches.update(crepe_slice(card, workdir, entries))
         crepe_full(card, entries)
         bottleneck_phase(card, workdir, entries)
+        launches['dtw'] = abx_phase(card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1916,6 +2297,9 @@ def main():
         # a lax.scan, not a Pallas kernel: the CREPE device decode
         'banded_viterbi': ('shennong_tpu_torch/csrc/banded_viterbi.cu',
                            'shennong_tpu/ops/viterbi.py:133'),
+        # a lax.scan with an associative_scan: the ABX evaluator's DTW
+        'dtw': ('shennong_tpu_torch/csrc/dtw.cu',
+                'shennong_tpu/eval/abx.py:65'),
     }
     print(json.dumps({'kernels': [
         {'name': name, 'route': 'cuda', 'source': source,
@@ -1923,8 +2307,11 @@ def main():
          'max_abs_err': errors[name], 'ms': times[name][0],
          'plain_ms': times[name][1], 'bound_ms': times[name][2],
          'bound_by': times[name][3],
-         # no single PyTorch call computes a min-plus or max-plus Viterbi
-         'library_ms': None}
+         # no single PyTorch call computes a Viterbi or a DTW
+         'library_ms': None,
+         # the DTW's pairs past DTW_TOL, each a proven near-tie, are
+         # counted here and kept out of its max_abs_err
+         **(dtw_ties if name == 'dtw' else {})}
         for name, (source, replaces) in kernels.items()]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

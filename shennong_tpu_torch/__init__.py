@@ -19,6 +19,9 @@ features containers, serializers, utterance indexes, the pipeline
 manager), so it runs where neither that package nor jax is installed.
 """
 
+import datetime
+import textwrap
+
 import torch
 
 from shennong_tpu_torch.audio import Audio
@@ -36,3 +39,29 @@ torch.set_float32_matmul_precision('highest')
 
 __all__ = ['Audio', 'Features', 'FeaturesCollection', 'Utterance',
            'Utterances']
+
+
+def url():
+    """URL of the project documentation"""
+    return 'https://github.com/shennong-tpu/shennong-tpu'
+
+
+def version(type=str, full=False):
+    """The package version, as a string or a tuple"""
+    if type not in (str, tuple, 'str', 'tuple'):
+        raise ValueError(
+            'version type must be str or tuple, it is {}'.format(type))
+
+    vers = tuple(__version__.split('.'))
+    if not full:
+        vers = vers[:3]
+    return vers if type in (tuple, 'tuple') else '.'.join(vers)
+
+
+def version_long():
+    """Version plus copyright and license info, for --version output"""
+    return textwrap.dedent('''\
+    shennong-tpu-torch-{}
+    PyTorch and CUDA port of the shennong speech features toolbox ({})
+    licence GPL3: this is free software, see the source for copying conditions
+    '''.format(version(), datetime.date.today().year))

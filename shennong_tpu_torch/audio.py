@@ -1,8 +1,8 @@
 """The :class:`Audio` container for waveform signals.
 
-The port's own copy of ``shennong_tpu/audio.py``, with the methods the
-port calls: load and scan audio files, dtype conversions with range
-validation, resampling and time segmentation.
+The port's own copy of ``shennong_tpu/audio.py``: load, scan and save
+audio files, dtype conversions with range validation, channel
+extraction, resampling and time segmentation.
 
 Decoding relies on :mod:`scipy.io.wavfile` for WAV and on the port's
 native runtime for compressed formats: FLAC through its own decoder
@@ -111,6 +111,11 @@ class Audio:
     def dtype(self):
         """Numeric type of the samples"""
         return self.data.dtype
+
+    @property
+    def precision(self):
+        """Number of bits per sample"""
+        return self.dtype.itemsize * 8
 
     @classmethod
     def scan(cls, filename):
@@ -251,6 +256,55 @@ class Audio:
         raise ValueError(
             f'{filename}: cannot read file (not a WAV, and neither the '
             f'native codec runtime nor an ffmpeg binary could decode it)')
+
+    def save(self, filename):
+        """Write the signal to ``filename`` (format from extension)."""
+        filename = str(filename)
+        if os.path.isfile(filename):
+            raise ValueError(f'{filename}: file already exists')
+        if '.' not in filename:
+            raise ValueError(
+                f'{filename}: cannot write audio file without extension')
+
+        extension = filename.split('.')[-1].lower()
+        if extension == 'wav':
+            scipy.io.wavfile.write(filename, self.sample_rate, self.data)
+            return
+
+        # compressed formats through the in-process libav* codec
+        # runtime, which takes int16 PCM: int16 sources (and, for the
+        # lossy codecs, any dtype through astype) go through it; other
+        # sources of lossless formats go to ffmpeg so a FLAC round trip
+        # never truncates 24/32-bit or float samples
+        from shennong_tpu_torch import native
+        lossy = extension in ('mp3', 'ogg', 'oga', 'opus', 'aac', 'm4a')
+        if self.dtype == np.dtype(np.int16) or lossy:
+            if native.codec_available() and native.codec_encode(
+                    filename, self.astype(np.int16).data,
+                    self.sample_rate):
+                return
+
+        if _ffmpeg_binary():
+            import io
+            buf = io.BytesIO()
+            scipy.io.wavfile.write(buf, self.sample_rate, self.data)
+            subprocess.run(
+                [_ffmpeg_binary(), '-hide_banner', '-i', '-', filename],
+                input=buf.getvalue(), capture_output=True, check=True)
+        else:
+            raise ValueError(
+                f'{filename}: cannot encode .{extension} (neither the '
+                f'native codec runtime nor an ffmpeg binary is available)')
+
+    def channel(self, index):
+        """Extract channel ``index`` as a mono :class:`Audio`."""
+        if index == 0 and self.nchannels == 1:
+            return self
+        if index >= self.nchannels:
+            raise ValueError(
+                f'not enough channels ({self.nchannels}) to extract '
+                f'the index {index} (indices count starts at 0)')
+        return Audio(self.data[:, index], self.sample_rate)
 
     @staticmethod
     def _is_valid_dtype(dtype):

@@ -38,6 +38,11 @@ class BaseProcessor:
         """The processor's logger"""
         return self._logger
 
+    def set_logger(
+            self, level, formatter='%(levelname)s - %(name)s - %(message)s'):
+        """Reconfigure the processor's logger level and format."""
+        self._logger = get_logger(self.name, level=level, formatter=formatter)
+
     @classmethod
     def _get_param_names(cls):
         """Introspect the constructor to discover parameter names."""

@@ -1,7 +1,6 @@
 """The :class:`Features` container: per-frame features + timestamps.
 
-The port's own copy of ``shennong_tpu/features.py`` (the methods the
-port calls). A Features instance stores an immutable triplet (data,
+The port's own copy of ``shennong_tpu/features.py``. A Features instance stores an immutable triplet (data,
 times, properties) for one utterance; collections of them are handled
 by :class:`~shennong_tpu_torch.features_collection.FeaturesCollection`.
 """
@@ -86,6 +85,16 @@ class Features:
             and dict_equal(self.properties, other.properties)
             and np.array_equal(self.times, other.times)
             and np.array_equal(self.data, other.data))
+
+    def is_close(self, other, rtol=1e-5, atol=1e-8):
+        """Approximate equality: identical times/properties, allclose data."""
+        if self is other:
+            return True
+        return (
+            self.shape == other.shape
+            and dict_equal(self.properties, other.properties)
+            and np.array_equal(self.times, other.times)
+            and np.allclose(self.data, other.data, atol=atol, rtol=rtol))
 
     def copy(self, dtype=None, subsample=None):
         """Deep copy, with optional dtype conversion and frame

@@ -1,9 +1,11 @@
 """A named collection of :class:`Features`, with file serialization.
 
-The port's own copy of ``shennong_tpu/features_collection.py`` (the
-methods the port calls): a dict of utterance name -> Features with
-save, load and VAD trimming.
+The port's own copy of ``shennong_tpu/features_collection.py``: a dict
+of utterance name -> Features with save, load, comparison, partition
+and VAD trimming.
 """
+
+import collections
 
 import numpy as np
 
@@ -38,6 +40,35 @@ class FeaturesCollection(dict):
     def is_valid(self):
         """True if every features item in the collection is valid"""
         return all(feats.is_valid() for feats in self.values())
+
+    def is_close(self, other, rtol=1e-5, atol=1e-8):
+        """Approximate equality of two collections"""
+        if self.keys() != other.keys():
+            return False
+        return all(
+            self[k].is_close(other[k], rtol=rtol, atol=atol) for k in self)
+
+    def partition(self, index):
+        """Split the collection into sub-collections following ``index``.
+
+        ``index`` maps every utterance name in the collection to a
+        group label (e.g. a speaker); the result maps each label to the
+        sub-collection of its utterances. ``index`` may hold more names
+        than the collection.
+        """
+        missing = set(self.keys()) - set(index.keys())
+        if missing:
+            raise ValueError(
+                'following items are not defined in the partition index: {}'
+                .format(', '.join(sorted(missing))))
+
+        groups = collections.defaultdict(list)
+        for key in self.keys():
+            groups[index[key]].append(key)
+
+        return {
+            label: FeaturesCollection({k: self[k] for k in keys})
+            for label, keys in groups.items()}
 
     def trim(self, vad):
         """Keep only the frames flagged True in per-utterance ``vad``

@@ -75,6 +75,8 @@ _CODEC_SIGNATURES = {
     'shennong_codec_decode': (_P(ctypes.c_int16), [
         ctypes.c_char_p, _P(_I64), _P(_I32), _P(_I32)]),
     'shennong_codec_free': (None, [_P(ctypes.c_int16)]),
+    'shennong_codec_encode': (ctypes.c_int, [
+        ctypes.c_char_p, _P(ctypes.c_int16), _I64, _I32, _I32]),
 }
 
 
@@ -141,6 +143,11 @@ def available():
     return load_library() is not None
 
 
+def codec_available():
+    """True when the libav*-backed codec library is usable"""
+    return load_codec_library() is not None
+
+
 def codec_scan(path):
     """(channels, sample_rate, nsamples_estimate) of a compressed
     audio file, or None. The sample count comes from the container
@@ -179,6 +186,20 @@ def codec_decode(path):
     if channels.value > 1:
         data = data.reshape(nframes.value, channels.value)
     return data, rate.value
+
+
+def codec_encode(path, data, sample_rate):
+    """Encode interleaved int16 PCM to ``path`` (format from the
+    extension: mp3, flac, ogg, ...). Returns True on success."""
+    lib = load_codec_library()
+    if lib is None:
+        return False
+    data = np.ascontiguousarray(data, dtype=np.int16)
+    channels = 1 if data.ndim == 1 else data.shape[1]
+    status = lib.shennong_codec_encode(
+        str(path).encode(), data.ctypes.data_as(_P(ctypes.c_int16)),
+        data.shape[0], channels, sample_rate)
+    return status == 0
 
 
 def wav_scan2(path):

@@ -80,6 +80,16 @@ def frame_counts(nsamples, opts):
     return torch.div(nsamples + shift // 2, shift, rounding_mode='floor')
 
 
+def first_sample_of_frame(frame, opts):
+    """Index of the first sample of ``frame`` (may be negative when
+    ``snip_edges`` is False)."""
+    shift = opts.window_shift
+    if opts.snip_edges:
+        return frame * shift
+    midpoint = shift * frame + shift // 2
+    return midpoint - opts.window_size // 2
+
+
 @functools.lru_cache(maxsize=None)
 def window_function(window_type, window_size, blackman_coeff=0.42):
     """The window vector (float32 numpy), one of the five Kaldi types.

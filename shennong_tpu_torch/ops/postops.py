@@ -47,6 +47,16 @@ def batch_ragged(arrays, minimum=128, batch_rows=16):
             yield chunk, stacked, nframes
 
 
+def pad_frame_axis(data, minimum=128):
+    """Pad a [nframes, dim] matrix to a frame-count bucket: returns
+    (padded [1, bucket, dim] float32, nframes [1] int32), numpy."""
+    nframes = data.shape[0]
+    bucket = bucket_size(nframes, minimum=minimum)
+    padded = np.zeros((1, bucket, data.shape[1]), dtype=np.float32)
+    padded[0, :nframes] = data
+    return padded, np.array([nframes], dtype=np.int32)
+
+
 # ------------------------------------------------------------------- deltas
 
 @functools.lru_cache(maxsize=None)

@@ -1,5 +1,5 @@
-"""The pipeline's pass 1, and the GMM-training front-end, as one
-program per padded utterance batch.
+"""The pipeline's pass 1, the GMM-training front-end and the fused
+MFCC + pitch pipeline, each one program per padded utterance batch.
 
 Counterpart of :func:`shennong_tpu.parallel.fused.pass_one_program`:
 everything pass 1 needs from a padded signal batch, computed on one
@@ -100,6 +100,51 @@ def pass_one_program(signals, nsamples, mel_weights, equal_loudness, kind,
             raw_pitch, pitch_frames, post_opts, noise=noise)
 
     return out
+
+
+def mfcc_pitch_pipeline(signals, nsamples, mel_weights, mfcc_opts,
+                        pitch_opts, post_opts, nframes_max,
+                        pitch_frames_max, delta_order=2, delta_window=2, *,
+                        device, generator=None):
+    """MFCC + per-utterance CMVN + deltas + Kaldi pitch in one call.
+
+    Counterpart of :func:`shennong_tpu.parallel.fused.mfcc_pitch_pipeline`:
+    [B, T] padded int16-range signals -> ([B, F, 13 * (delta_order + 1)
+    + pitch dims] features, [B] int32 frame counts) on ``device``. CMVN
+    normalizes each utterance's mean and variance over its own valid
+    frames; the frame count of a row is the smaller of its MFCC and
+    pitch counts. A non-zero dither needs ``generator`` (on ``device``).
+    """
+    device = torch.device(device)
+    signals = signals.to(device=device, dtype=torch.float32)
+    nsamples = nsamples.to(device=device, dtype=torch.int32)
+    feats = spectral.mfcc_batch(
+        signals, nsamples, mel_weights, mfcc_opts, nframes_max,
+        generator=generator)
+    nframes = frame_counts(nsamples, mfcc_opts.frame)
+
+    t = torch.arange(feats.shape[1], device=device)[None, :, None]
+    valid = t < nframes[:, None, None]
+    count = torch.clamp_min(nframes.to(torch.float32), 1.0)[:, None, None]
+    masked = torch.where(valid, feats, 0.0)
+    mean = masked.sum(dim=1, keepdim=True) / count
+    var = (masked * masked).sum(dim=1, keepdim=True) / count - mean * mean
+    feats = torch.where(
+        valid, (feats - mean) * torch.rsqrt(torch.clamp_min(var, 1e-20)),
+        0.0)
+    feats = postops.compute_deltas(
+        feats, nframes, order=delta_order, window=delta_window)
+
+    raw_pitch = pitch_ops.compute_pitch(
+        signals, nsamples, pitch_opts, pitch_frames_max)
+    pitch_frames = pitch_ops.pitch_num_frames_device(
+        pitch_ops.resampled_lengths(nsamples, pitch_opts), pitch_opts)
+    pitch_feats = pitch_ops.process_pitch(raw_pitch, pitch_frames, post_opts)
+
+    common = min(feats.shape[1], pitch_feats.shape[1])
+    out = torch.cat([feats[:, :common], pitch_feats[:, :common]], dim=-1)
+    out_frames = torch.clamp_max(torch.minimum(nframes, pitch_frames), common)
+    return out, out_frames.to(torch.int32)
 
 
 def ubm_frontend_program(signals, nsamples, mel_weights, mfcc_opts,

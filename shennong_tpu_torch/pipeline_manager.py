@@ -101,6 +101,11 @@ class PipelineManager:
         return self._config
 
     @property
+    def utterances(self):
+        """Utterances on which to apply the pipeline"""
+        return self._utterances
+
+    @property
     def warps(self):
         """VTLN warps of the utterances (optional)"""
         return self._warps
@@ -233,6 +238,41 @@ class PipelineManager:
         proc.log.setLevel(self.log.getEffectiveLevel())
         return proc
 
+    def get_features_processor(self, utterance):
+        """The configured main features extractor for ``utterance``"""
+        return self.make('features', utterance)
+
+    def get_energy_processor(self, utterance):
+        """The energy processor sharing the pipeline's framing"""
+        return self.make('energy', utterance)
+
+    def get_vad_processor(self, _utterance=None):
+        """The VAD post-processor weighting the CMVN statistics"""
+        return self.make('vad')
+
+    def get_cmvn_processor(self, utterance):
+        """A CMVN post-processor over the utterance's group stats"""
+        cmvn = self.get_processor_class('cmvn')(
+            self._ndims, stats=self.cmvn_stats[self.cmvn_key(utterance)])
+        cmvn.log.setLevel(self.log.getEffectiveLevel())
+        return cmvn
+
+    def get_pitch_processor(self, utterance):
+        """The configured pitch extractor for ``utterance``"""
+        return self.make('pitch', utterance)
+
+    def get_pitch_post_processor(self, _utterance=None):
+        """The configured pitch post-processor"""
+        return self.make('pitch_post')
+
+    def get_delta_processor(self, _utterance=None):
+        """The configured delta post-processor"""
+        return self.make('delta')
+
+    def get_vtln_processor(self, _utterance=None):
+        """The configured VTLN processor"""
+        return self.make('vtln')
+
     def get_audio(self, utterance):
         """Load (and for bottleneck, resample) an utterance's audio."""
         audio = utterance.load_audio()
@@ -271,7 +311,4 @@ class PipelineManager:
 
     def apply_cmvn(self, utterance, features):
         """Normalize one utterance's features with its group stats."""
-        cmvn = self.get_processor_class('cmvn')(
-            self._ndims, stats=self.cmvn_stats[self.cmvn_key(utterance)])
-        cmvn.log.setLevel(self.log.getEffectiveLevel())
-        return cmvn.process(features)
+        return self.get_cmvn_processor(utterance).process(features)

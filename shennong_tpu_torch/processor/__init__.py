@@ -2,7 +2,8 @@
 
 The processors: spectrogram, filterbank, MFCC, PLP (with RASTA),
 frame energy, bottleneck features, Kaldi and CREPE pitch with their
-post-processors, and the UBM-GMM and VTLN trainers.
+post-processors, one-hot encodings of alignments, and the UBM-GMM and
+VTLN trainers.
 Imports are lazy (PEP 562), as in :mod:`shennong_tpu.processor`.
 """
 
@@ -17,6 +18,8 @@ _REGISTRY = {
     'CrepePitchProcessor': 'pitch_crepe',
     'CrepePitchPostProcessor': 'pitch_crepe',
     'BottleneckProcessor': 'bottleneck',
+    'OneHotProcessor': 'onehot',
+    'FramedOneHotProcessor': 'onehot',
     'DiagUbmProcessor': 'ubm',
     'VtlnProcessor': 'vtln',
 }

@@ -528,6 +528,40 @@ _KALDI_DTYPES = {b'FM': np.float32, b'DM': np.float64}
 _KALDI_TOKENS = {np.dtype(np.float32): b'FM', np.dtype(np.float64): b'DM'}
 
 
+def read_htk(filename):
+    """Read an HTK binary feature file (e.g. ``.fea``).
+
+    HTK files carry a 12-byte big-endian header (number of samples,
+    sample period in 100 ns units, bytes per sample, parameter kind)
+    followed by the big-endian float32 feature matrix.
+
+    Returns
+    -------
+    data : np.ndarray [nsamples, ndims] float32 (native byte order)
+    period : float, the sample period in seconds
+    """
+    with open(filename, 'rb') as fp:
+        nsamples, period, sampsize, _parmkind = struct.unpack(
+            '>IIHH', fp.read(12))
+        raw = fp.read(nsamples * sampsize)
+    data = np.frombuffer(raw, dtype='>f4').reshape(nsamples, sampsize // 4)
+    return data.astype(np.float32), period * 1e-7
+
+
+def write_htk(filename, data, frame_shift=0.01, parmkind=9):
+    """Write a feature matrix as an HTK binary file.
+
+    The inverse of :func:`read_htk`; ``parmkind=9`` is the HTK USER
+    (arbitrary features) parameter kind.
+    """
+    data = np.asarray(data, dtype=np.float32)
+    with open(filename, 'wb') as fp:
+        fp.write(struct.pack(
+            '>IIHH', data.shape[0], int(round(frame_shift * 1e7)),
+            4 * data.shape[1], parmkind))
+        fp.write(data.astype('>f4').tobytes())
+
+
 def write_ark_matrix(fp, key, matrix):
     """Append one Kaldi binary matrix record to an open file.
 

@@ -37,6 +37,15 @@ def copy_properties(obj):
     return obj
 
 
+def list2array(seq):
+    """Recursively convert lists into numpy arrays."""
+    if isinstance(seq, list):
+        return np.asarray(seq)
+    if isinstance(seq, dict):
+        return {k: list2array(v) for k, v in seq.items()}
+    return seq
+
+
 def array2list(seq):
     """Recursively convert numpy arrays into plain lists."""
     if isinstance(seq, dict):

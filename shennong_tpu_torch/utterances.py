@@ -12,6 +12,7 @@ comes in one of four formats (the port's own copy of
 
 import collections
 import os
+import random
 import warnings
 
 from shennong_tpu_torch.audio import Audio
@@ -324,3 +325,46 @@ class Utterances:
     def duration(self):
         """Total duration of the collection in seconds"""
         return sum(utt.duration for utt in self)
+
+    def fit_to_duration(self, duration, truncate=False, shuffle=False):
+        """Budget ``duration`` seconds of audio per speaker.
+
+        Returns a new :class:`Utterances` whose segments cover at most
+        ``duration`` seconds for each speaker (used to bound VTLN
+        training data). With ``truncate=False`` a speaker with too
+        little data raises; otherwise a warning is issued.
+        """
+        if duration <= 0:
+            raise ValueError(
+                f'duration must be a positive number, it is {duration}')
+
+        def speaker_segments(speaker, utterances):
+            budget = duration
+            for utt in utterances:
+                onset = utt.tstart or 0
+                offset = (
+                    utt.tstop if utt.tstop is not None
+                    else utt.duration - onset)
+                if utt.duration >= budget:
+                    yield Utterance(
+                        utt.name, utt.audio_file, utt.speaker,
+                        onset, onset + budget)
+                    return
+                yield Utterance(
+                    utt.name, utt.audio_file, utt.speaker, onset, offset)
+                budget -= utt.duration
+
+            message = (
+                f'speaker {speaker}: only {duration - budget}s'
+                f' of audio available but {duration}s requested')
+            if truncate:
+                warnings.warn(message)
+            else:
+                raise ValueError(message)
+
+        segments = []
+        for speaker, utterances in self.by_speaker().items():
+            if shuffle:
+                random.shuffle(utterances)
+            segments.extend(speaker_segments(speaker, utterances))
+        return Utterances(segments)

@@ -27,7 +27,13 @@ decode is held against its plain version on the card (paths equal,
 over repeated launches too), the CREPE CNN and the bottleneck network
 and filterbank on the card against the CPU (1e-4, float32 convolutions
 and products summing in other orders), and the CREPE processor's host
-and device decodes on the card against the CPU.
+and device decodes on the card against the CPU. The DTW kernel of the
+ABX evaluator is held against its plain version on the card (1e-5 on
+real-valued costs or a near-tie proven in float64 by
+``chip_smoke.dtw_against_plain``, at most one pair in 1000; equal on
+integer-valued ones, over repeated launches), and the 'ci' ABX
+benchmark on the card against the CPU (warps equal, errors within
+0.005).
 """
 
 import copy
@@ -614,3 +620,68 @@ def test_bottleneck_network_matches_cpu(cuda_device):
         frames.to(cuda_device), window.to(cuda_device), bank.to(cuda_device),
         256)
     assert float((gpu.cpu() - cpu).abs().max()) < 1e-4
+
+
+# the ABX evaluator's DTW kernel: the benchmark's segments (full and
+# ragged counts from 1), one strip and several, one row, one column
+DTW_CASES = [
+    ((4096, 24, 24), False), ((4096, 24, 24), True), ((7, 1, 1), True),
+    ((5, 1, 40), True), ((5, 40, 1), True), ((512, 64, 64), True),
+    ((3, 33, 70), True), ((1, 300, 280), False)]
+
+
+@pytest.mark.parametrize('shape,ragged', DTW_CASES)
+def test_dtw_kernel_matches_plain(cuda_device, shape, ragged):
+    from chip_smoke import dtw_against_plain
+    from shennong_tpu_torch.eval import abx
+    from shennong_tpu_torch.ops import dtw
+
+    bsz, rows, cols = shape
+    rng = np.random.RandomState(bsz + rows)
+
+    def counts(limit):
+        values = (rng.randint(1, limit + 1, bsz) if ragged
+                  else np.full(bsz, limit))
+        return torch.tensor(values, dtype=torch.int32, device=cuda_device)
+
+    nx, ny = counts(rows), counts(cols)
+    x = torch.from_numpy(rng.randn(bsz, rows, 13).astype(np.float32))
+    y = torch.from_numpy(rng.randn(bsz, cols, 13).astype(np.float32))
+    for metric in ('cosine', 'euclidean'):
+        costs = abx._frame_costs(
+            x.to(cuda_device), y.to(cuda_device), metric)
+        dtw.reset_launches()
+        div = dtw.dtw_divergences(costs, nx, ny)
+        assert dtw.LAUNCHES == {'dtw': 1}
+        plain = dtw.dtw_divergences_plain(costs, nx, ny)
+        # past 1e-5, the two must be a proven near-tie of two lengths,
+        # and at most one pair in 1000 may be
+        _, _, _, failed = dtw_against_plain(costs, nx, ny, div, plain)
+        assert not failed, (metric, failed)
+        assert torch.equal(dtw.dtw_divergences(costs, nx, ny), div)
+    # integer-valued costs: every sum exact, ties in cost to the
+    # shortest path in both, and on the CPU too
+    costs = torch.from_numpy(
+        rng.randint(0, 3, shape).astype(np.float32)).to(cuda_device)
+    div = dtw.dtw_divergences(costs, nx, ny)
+    assert torch.equal(div, dtw.dtw_divergences_plain(costs, nx, ny))
+    assert torch.equal(
+        div.cpu(), dtw.dtw_divergences(costs.cpu(), nx.cpu(), ny.cpu()))
+
+
+def test_abx_ci_matches_cpu(cuda_device):
+    from shennong_tpu_torch.eval import abx_bench
+    from shennong_tpu_torch.ops import dtw
+
+    dtw.reset_launches()
+    gpu = abx_bench.benchmark('ci', features=('mfcc', 'rastaplp'),
+                              device=cuda_device)
+    assert dtw.LAUNCHES['dtw'] >= 10
+    cpu = abx_bench.benchmark('ci', features=('mfcc', 'rastaplp'),
+                              device='cpu')
+    assert gpu['warps'] == cpu['warps']
+    for task in ('across', 'within'):
+        for feature in ('mfcc', 'rastaplp'):
+            for label, value in gpu['errors'][task][feature].items():
+                assert abs(value - cpu['errors'][task][feature][label]) \
+                    < 0.005, (task, feature, label)

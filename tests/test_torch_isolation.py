@@ -8,8 +8,9 @@
    ``extract_features(device='cpu')``, imports the UBM/VTLN trainers
    and the parameter carriers, runs CREPE pitch (its CNN, host and
    device decodes) and the bottleneck front end, imports the rest of
-   the CREPE and bottleneck modules, and runs the CLI's ``config
-   --vtln`` and ``config bottleneck``.
+   the CREPE and bottleneck modules, runs a one-hot encoding of an
+   alignment and the ABX evaluator's distances over segments cut by
+   it, and runs the CLI's ``config --vtln`` and ``config bottleneck``.
 3. The port's own host layer writes the same files as the JAX
    package's: a ``FeaturesCollection`` saved by either loads in the
    other with equal arrays, dtypes and properties.
@@ -126,6 +127,15 @@ fbank = bottleneck.fbank_htk(
     frames, torch.ones(200), torch.as_tensor(bottleneck.mel_filterbank_htk(
         200, 8000, 24, 64.0, 3800.0)), 256)
 assert fbank.shape == (148, 24) and BottleneckProcessor().ndims == 80
+from shennong_tpu_torch.alignment import Alignment
+from shennong_tpu_torch.eval import abx, abx_bench  # noqa: F401
+from shennong_tpu_torch.processor import FramedOneHotProcessor
+alignment = Alignment.from_list([(0.0, 0.7, 'a'), (0.7, 1.48, 'b')])
+assert FramedOneHotProcessor().process(alignment).shape == (146, 2)
+segments = [data for _, data in abx.segments_from_alignment(
+    out['a'], alignment)]
+distances = abx.pairwise_distances(segments, device='cpu')
+assert distances.shape == (2, 2) and distances[0, 1] > 0
 sys.argv = ['speech-features-torch', 'config', 'bottleneck', '--cmvn']
 main()
 sys.argv = ['speech-features-torch', 'config', 'mfcc', '--pitch', 'kaldi',
