@@ -36,6 +36,17 @@ generated corpus of 256 utterances (4 s and 6 s, 16 speakers):
   rounds, by speaker), its wall split into the training's stages, its
   corpus uploads counted, and the trained UBM, transforms, warps and
   features on the card against the CPU on 16 utterances of 4 speakers;
+- multi-process extraction and training (``parallel/distributed.py``):
+  two processes on the card over gloo, spawned as ``python3
+  chip_smoke.py --worker RANK DIRECTORY``, run the main path over the
+  corpus (its speakers relabelled to span both processes) and the VTLN
+  training at full width on the training half of the ABX 'full'
+  benchmark (speakers with vocal-tract factors); their features
+  against the single-process card run (1e-5, lags equal or proven
+  ties), their models the same bits, the warps against the single
+  process (equal or proven ties), the UBM and the transforms within
+  2e-3; walls, and the collectives per EM iteration and per LVTLN
+  round;
 - the CREPE slice (BASELINE config 3 with CREPE 'tiny' pitch): MFCC +
   CREPE pitch + CMVN + delta over the corpus with the float64 host
   decode (cold run, 5 warm runs, peak memory, a profiled run with the
@@ -56,9 +67,10 @@ generated corpus of 256 utterances (4 s and 6 s, 16 speakers):
   'full' mfcc on the card (its wall by stage, DTW pairs a second, the
   mfcc row against ``doc/performance.md``, a profiled run).
 
-The three Kaldi-pitch slices and the long-audio run must go through
-both pitch Viterbi kernels, the CREPE device decode through the banded
-one, the ABX runs through the DTW kernel. Every phase prints
+The three Kaldi-pitch slices, the long-audio run and each process of
+the multi-process run must go through both pitch Viterbi kernels, the
+CREPE device decode through the banded one, the ABX runs through the
+DTW kernel. Every phase prints
 its lines; any failure raises and the script exits non-zero. The
 second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is the JSON verdict.
@@ -67,6 +79,7 @@ Exits non-zero without a result when no CUDA device is available.
 Imports nothing of JAX.
 """
 
+import contextlib
 import copy
 import ctypes
 import json
@@ -119,26 +132,35 @@ def cuda_ms(fn, repeats):
     return start.elapsed_time(stop) / repeats
 
 
-def kernel_device_ms(fn, repeats, kernel):
+def kernel_device_ms(fn, repeats, kernel, attempts=3):
     """Mean device milliseconds a launch of the kernels whose name holds
     ``kernel`` over ``repeats`` calls of ``fn()`` (torch.profiler, after
     one warm-up call): the kernel alone, where CUDA events around the
-    calls would also time the host's enqueue of a short kernel."""
+    calls would also time the host's enqueue of a short kernel. The
+    profiler can lose a launch's record (it saw 18 of 20 once on the
+    H100): a window that did not record every launch is profiled again,
+    up to ``attempts`` windows, and none counts unless it saw them
+    all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and kernel in e.key]
-    count = sum(e.count for e in events)
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and kernel in e.key]
+        count = sum(e.count for e in events)
+        if count == repeats:
+            break
+        say('profiler', f'window {attempt + 1} saw {count} launches of '
+            f'{kernel}, not {repeats}')
     check(count == repeats, f'the profiler saw {count} launches of {kernel}, '
-          f'not {repeats}')
+          f'not {repeats}, in each of {attempts} windows')
     return sum(e.self_device_time_total for e in events) / 1e3 / count
 
 
@@ -511,6 +533,21 @@ def zero_randomness(config, features):
     return config
 
 
+@contextlib.contextmanager
+def energy_dither_off():
+    """The energy VAD's default dither of 1.0 set to 0 (the pipeline
+    configuration has no knob for it)."""
+    from shennong_tpu_torch.processor import energy as energy_module
+
+    defaults = energy_module.EnergyProcessor.__init__.__defaults__
+    energy_module.EnergyProcessor.__init__.__defaults__ = (
+        defaults[:3] + (0.0,) + defaults[4:])
+    try:
+        yield
+    finally:
+        energy_module.EnergyProcessor.__init__.__defaults__ = defaults
+
+
 def warm_runs(config, utterances):
     """``RUNS`` timed runs of ``extract_features`` on the card: their
     walls in seconds, and the last run's features."""
@@ -612,22 +649,16 @@ def cuda_against_cpu(config, features, utterances, raw_pitch, warps=None):
     against its own NCCF at the ties (the ballast-free NCCF of two tied
     lags can differ widely, as in unvoiced frames)."""
     from shennong_tpu_torch import pipeline
-    from shennong_tpu_torch.processor import energy as energy_module
     from shennong_tpu_torch.processor.pitch_kaldi import KaldiPitchProcessor
 
     from tests.lag_ties import assert_ties
     from tests.pitch_oracle import assert_lag_decisions, process_pitch
 
-    defaults = energy_module.EnergyProcessor.__init__.__defaults__
-    energy_module.EnergyProcessor.__init__.__defaults__ = (
-        defaults[:3] + (0.0,) + defaults[4:])
-    try:
+    with energy_dither_off():
         on = {device: pipeline.extract_features(
             zero_randomness(copy.deepcopy(config), features), utterances,
             warps=warps, device=device)
             for device in ('cuda', 'cpu')}
-    finally:
-        energy_module.EnergyProcessor.__init__.__defaults__ = defaults
     raw = {device: raw_pitch(utterances, device)
            for device in ('cuda', 'cpu')}
     worst = 0.0
@@ -1193,19 +1224,20 @@ def class_objective(stats, group, base, norm_type, classes):
     return values
 
 
-def training_frames(config, utterances, cmvn):
-    """The VTLN training's selected frames (voiced, subsampled) on the
-    CPU, float64 [N, D]: with its sliding CMVN (the frames the speaker
-    transforms act on) or without (the base transforms')."""
+def training_frames(config, utterances, cmvn, device='cpu'):
+    """The VTLN training's selected frames (voiced, subsampled),
+    computed on ``device``, float64 [N, D] on the host: with its sliding
+    CMVN (the frames the speaker transforms act on) or without (the base
+    transforms')."""
     from shennong_tpu_torch.processor import ubm as ubm_module
 
-    vtln, ubm = vtln_trainer(config, 'cpu')
+    vtln, ubm = vtln_trainer(config, device)
     features = copy.deepcopy(vtln.features)
     if not cmvn:
         del features['sliding_window_cmvn']
     flat, _, w_em, _, _ = ubm_module.stream_frontend(
-        features, ubm.vad, vtln.subsample, utterances, device='cpu')
-    return flat[w_em > 0].to(torch.float64).numpy()
+        features, ubm.vad, vtln.subsample, utterances, device=device)
+    return flat[w_em > 0].to(torch.float64).cpu().numpy()
 
 
 def action_gap(ours, ref, frames):
@@ -1330,6 +1362,386 @@ def vtln_against_cpu(phase, config, entries):
     say(phase, f'cuda vs cpu, the warped extraction of the {len(same)} '
         f'utterances whose warps are equal: max-abs {worst_feats:.3g} < '
         f'{SLICE_TOL} ({ties} with proven lag ties)')
+
+
+# ------------------------------------------------------------ distributed
+
+DIST_WORLD = 2           # processes of the distributed phase, on one card
+DIST_TIMEOUT = 120       # seconds, the timeout of their process group
+DIST_WAIT = 600          # seconds, the phase's wait on its processes
+DIST_TOL = 1e-5          # their features against the single process's
+#: the VTLN training corpus: the training half of the ABX 'full'
+#: benchmark (eval/abx_bench.py, seed 0), speakers with vocal-tract
+#: factors 0.88 to 1.14
+DIST_TRAINING = dict(nspeakers=20, nphones=10, train_tokens=3)
+
+
+def distributed_entries(entries):
+    """The corpus with its 16 speakers relabelled so that each spans
+    both processes: the round-robin shards send the even utterances
+    (4 s) to process 0 and the odd ones (6 s) to process 1, and speaker
+    ``k`` owns the utterances ``32 j + 2 k`` and ``32 j + 2 k + 1``."""
+    return [(name, path, f'spk{(index // 2) % NUM_SPEAKERS:02d}')
+            for index, (name, path, _) in enumerate(entries)]
+
+
+def training_vtln(config):
+    """The VTLN trainer of ``config``'s section, every random source at
+    0, its UBM configuration carried in ``vtln.ubm``: both the single-
+    and the multi-process trainers build their UBM from it."""
+    vtln, ubm = vtln_trainer(config, 'cuda')
+    vtln.ubm = ubm.get_params()
+    return vtln
+
+
+class TrainingRecorder:
+    """Records a VTLN training: the UBM before and after the LVTLN
+    rounds, the last statistics (beta, K, G) the rounds solved, and the
+    collectives (count, host seconds) of the UBM training and of the
+    rounds."""
+
+    def __enter__(self):
+        from shennong_tpu_torch.ops import fmllr
+        from shennong_tpu_torch.parallel import distributed
+        from shennong_tpu_torch.processor.vtln import VtlnProcessor
+
+        record = {'collectives': {}}
+        self.patched = [(fmllr, 'solve_warp_classes'),
+                        (VtlnProcessor, '_rounds_fused_arrays'),
+                        (distributed, '_train_ubm')]
+        self.originals = [getattr(owner, name) for owner, name in self.patched]
+        solve, rounds, train_ubm = self.originals
+
+        def collect(label, fn, *args, **kwargs):
+            calls = distributed.COLLECTIVES['calls']
+            seconds = distributed.COLLECTIVES['seconds']
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                record['collectives'][label] = (
+                    distributed.COLLECTIVES['calls'] - calls,
+                    distributed.COLLECTIVES['seconds'] - seconds)
+
+        def solving(beta, K, G, *args, **kwargs):
+            record['stats'] = [beta, K, G]
+            return solve(beta, K, G, *args, **kwargs)
+
+        def rounding(vtln, ubm, *args, **kwargs):
+            record['ubm'] = copy.deepcopy(ubm.gmm)
+            out = collect('rounds', rounds, vtln, ubm, *args, **kwargs)
+            record['gmm'] = copy.deepcopy(ubm.gmm)
+            return out
+
+        def training_ubm(*args, **kwargs):
+            return collect('ubm', train_ubm, *args, **kwargs)
+
+        for (owner, name), fn in zip(self.patched,
+                                     (solving, rounding, training_ubm)):
+            setattr(owner, name, fn)
+        return record
+
+    def __exit__(self, *exc):
+        for (owner, name), fn in zip(self.patched, self.originals):
+            setattr(owner, name, fn)
+
+
+def trained_arrays(vtln, record):
+    """The arrays of a recorded VTLN training."""
+    arrays = {'base': vtln.lvtln.transforms}
+    for stage in ('ubm', 'gmm'):
+        for field in ('weights', 'means', 'inv_vars'):
+            arrays[f'{stage}.{field}'] = getattr(record[stage], field)
+    for i, stat in enumerate(record['stats']):
+        arrays[f'stats.{i}'] = stat.cpu().numpy().astype(np.float64)
+    for utt, transform in vtln.transforms.items():
+        arrays[f'transform/{utt}'] = transform
+    return arrays
+
+
+def distributed_worker(rank, directory):
+    """One process of the distributed phase, ``python3 chip_smoke.py
+    --worker RANK DIRECTORY``: joins the group of DIST_WORLD processes
+    (gloo, through a file store in ``directory``) on the card, runs the
+    main path over its shard twice (a cold run, then a run whose kernel
+    launches are counted), the raw pitch of its shard, and the VTLN
+    training twice (a cold run, then a recorded one), and writes its
+    results to ``directory``."""
+    from shennong_tpu_torch import Utterances
+    from shennong_tpu_torch.logger import null_logger
+    from shennong_tpu_torch.ops import cuda_viterbi
+    from shennong_tpu_torch.parallel import distributed
+
+    with open(os.path.join(directory, 'job.json')) as stream:
+        job = json.load(stream)
+    distributed.initialize(
+        'file://' + os.path.join(directory, 'store'), DIST_WORLD, rank,
+        backend='gloo', timeout=DIST_TIMEOUT)
+    corpus = Utterances([tuple(entry) for entry in job['corpus']])
+    config = zero_randomness(slice_config('mfcc'), 'mfcc')
+    report = {}
+
+    def timed(label, run):
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        report[label] = time.perf_counter() - start
+        return out
+
+    def extract():
+        return distributed.extract_features(
+            copy.deepcopy(config), corpus, device='cuda', log=null_logger())
+
+    with energy_dither_off():
+        timed('cold_s', extract)
+        cuda_viterbi.reset_launches()
+        features = timed('extract_s', extract)
+        report['launches'] = dict(cuda_viterbi.LAUNCHES)
+    raw = pitch_batched(distributed.shard_utterances(list(corpus)), 'cuda')
+    arrays = {}
+    for name in features:
+        arrays[f'features/{name}'] = features[name].data
+        arrays[f'pitch/{name}'] = raw[name]
+
+    training = Utterances([tuple(entry) for entry in job['training']])
+
+    def train(vtln):
+        return distributed.train_vtln(vtln, training, group_by='speaker',
+                                      device='cuda', log=null_logger())
+
+    # a cold run first: the single process it is compared with is warm
+    timed('train_cold_s', lambda: train(training_vtln(vtln_config())))
+    vtln = training_vtln(vtln_config())
+    with TrainingRecorder() as record:
+        report['warps'] = timed('train_s', lambda: train(vtln))
+    report['collectives'] = record['collectives']
+    arrays.update(trained_arrays(vtln, record))
+    np.savez(os.path.join(directory, f'rank{rank}.npz'), **arrays)
+    with open(os.path.join(directory, f'rank{rank}.json'), 'w') as stream:
+        json.dump(report, stream)
+
+
+def run_workers(directory):
+    """DIST_WORLD worker processes, spawned (never forked: each starts
+    CUDA afresh); fails unless every one exits 0 within DIST_WAIT.
+    Returns the wall from the spawn to the last exit."""
+    logs = [open(os.path.join(directory, f'rank{rank}.log'), 'w+')
+            for rank in range(DIST_WORLD)]
+    start = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, 'chip_smoke.py'), '--worker',
+         str(rank), directory], cwd=HERE, stdout=log,
+        stderr=subprocess.STDOUT) for rank, log in enumerate(logs)]
+    try:
+        deadline = start + DIST_WAIT
+        for proc in procs:
+            proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+        wall = time.perf_counter() - start
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        for rank, (proc, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            if proc.returncode != 0:
+                say('distributed', f'process {rank} exited with '
+                    f'{proc.returncode}; the end of its output:\n'
+                    + log.read()[-6000:])
+            log.close()
+    for rank, proc in enumerate(procs):
+        check(proc.returncode == 0,
+              f'distributed: process {rank} exited with {proc.returncode}')
+    return wall
+
+
+def distributed_phase(card, workdir, entries):
+    """The multi-process path (parallel/distributed.py): DIST_WORLD
+    processes on the card over gloo. The main path on the 256-utterance
+    corpus, speakers relabelled to span both processes
+    (:func:`distributed_entries`): the merged features against the
+    single-process card run (DIST_TOL; a pitch lag that differs a proven
+    tie, its three pitch columns left out), both Viterbi kernels
+    launched in every process. The VTLN training at the JAX package's
+    defaults (64 Gaussians, 41 warp classes, 15 rounds) on the ABX
+    'full' training half: the processes' UBM, base and speaker
+    transforms and warps the same bits, and against the single-process
+    card run the warps equal or proven ties, the UBM within MODEL_TOL,
+    the transforms within MODEL_TOL in their action on the training
+    frames. Prints the walls (the processes share the card: an
+    observation, not a speed-up) and the collectives per EM iteration
+    and per LVTLN round. Returns the Viterbi launches of the processes'
+    counted runs, summed."""
+    from shennong_tpu_torch import Utterances, pipeline
+    from shennong_tpu_torch.eval import abx_bench
+
+    from tests.pitch_oracle import assert_lag_decisions
+
+    phase = 'distributed'
+    begin = time.perf_counter()
+    directory = os.path.join(workdir, 'distributed')
+    os.makedirs(directory, exist_ok=True)
+    corpus = distributed_entries(entries)
+    training = abx_bench.write_training_half(
+        directory, abx_bench.phone_formants(DIST_TRAINING['nphones']),
+        abx_bench.speaker_profiles(DIST_TRAINING['nspeakers']),
+        DIST_TRAINING['train_tokens'], seed=0)
+    with open(os.path.join(directory, 'job.json'), 'w') as stream:
+        json.dump({'corpus': corpus, 'training': training}, stream)
+
+    # the single-process runs on the card, before the processes start
+    config = zero_randomness(slice_config('mfcc'), 'mfcc')
+    walls = {}
+    with energy_dither_off():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        single = pipeline.extract_features(
+            copy.deepcopy(config), Utterances(corpus), device='cuda')
+        torch.cuda.synchronize()
+        walls['extract'] = time.perf_counter() - start
+    single_raw = pitch_batched(Utterances(corpus), 'cuda')
+    vtln = training_vtln(vtln_config())
+    with TrainingRecorder() as record:
+        start = time.perf_counter()
+        single_warps = vtln.process(Utterances(training), group_by='speaker',
+                                    device='cuda')
+        torch.cuda.synchronize()
+        walls['train'] = time.perf_counter() - start
+    reference = trained_arrays(vtln, record)
+
+    spawn = run_workers(directory)
+    reports, results = [], []
+    for rank in range(DIST_WORLD):
+        with open(os.path.join(directory, f'rank{rank}.json')) as stream:
+            reports.append(json.load(stream))
+        results.append(dict(np.load(os.path.join(directory,
+                                                 f'rank{rank}.npz'))))
+    launches = {'viterbi_forward': 0, 'viterbi_backtrace': 0}
+    for rank, report in enumerate(reports):
+        for name in launches:
+            count = report['launches'].get(name, 0)
+            check(count > 0, f'{phase}: process {rank} never launched {name}')
+            launches[name] += count
+
+    # the main path: the merged shards against the single process
+    merged, raw = {}, {}
+    for rank, result in enumerate(results):
+        names = [key.split('/', 1)[1] for key in result
+                 if key.startswith('features/')]
+        check(sorted(names) == sorted(name for name, _, _ in corpus[rank::2]),
+              f'{phase}: process {rank} did not return its shard')
+        for name in names:
+            merged[name] = result[f'features/{name}']
+            raw[name] = result[f'pitch/{name}']
+    check(sorted(merged) == sorted(single.keys()),
+          f'{phase}: {len(merged)} utterances merged, not {len(single)}')
+    worst, ties = 0.0, 0
+    for utt in Utterances(corpus):
+        ours, ref = merged[utt.name], single[utt.name].data
+        check(ours.shape == ref.shape, f'{utt.name}: shape {ours.shape}')
+        columns = ours.shape[1]
+        if not np.array_equal(raw[utt.name][:, 1], single_raw[utt.name][:, 1]):
+            audio = utt.load_audio()
+            assert_lag_decisions(audio.data.astype(np.float64), raw[utt.name],
+                                 single_raw[utt.name], rate=audio.sample_rate)
+            ties += 1
+            columns -= 3
+        gap = float(np.abs(ours[:, :columns] - ref[:, :columns]).max())
+        check(gap < DIST_TOL, f'{phase}: {utt.name} max-abs {gap} against '
+              'the single process')
+        worst = max(worst, gap)
+    cold = max(report['cold_s'] for report in reports)
+    warm = max(report['extract_s'] for report in reports)
+    say(phase, f'main path over {len(corpus)} utterances in {DIST_WORLD} '
+        f'processes on the card (gloo; each speaker in both): against the '
+        f'single process max-abs {worst:.3g} < {DIST_TOL} ({ties} with '
+        f'proven lag ties); walls: {DIST_WORLD} processes {warm:.3f} s '
+        f'(cold run {cold:.3f} s), one process {walls["extract"]:.3f} s; '
+        f'launches by process '
+        + ', '.join(str(report['launches']) for report in reports))
+
+    # the training: the processes hold the same bits
+    for key, value in results[0].items():
+        if key.startswith(('ubm.', 'gmm.', 'base', 'transform/')):
+            check(all(value.tobytes() == result[key].tobytes()
+                      for result in results[1:]),
+                  f'{phase}: {key} differs between the processes')
+    check(all(report['warps'] == reports[0]['warps'] for report in reports),
+          f'{phase}: the warps differ between the processes')
+    dist, warps = results[0], reports[0]['warps']
+    params = vtln_config()['vtln']
+    speakers = sorted(single_warps)
+    check(sorted(warps) == speakers, f'{phase}: speakers {sorted(warps)}')
+    equal = [spk for spk in speakers if warps[spk] == single_warps[spk]]
+    gaps = []
+    for group, spk in enumerate(speakers):
+        if spk in equal:
+            continue
+        classes = [round((w - params['min_warp']) / params['warp_step'])
+                   for w in (warps[spk], single_warps[spk])]
+        for run in (dist, reference):
+            values = class_objective(
+                [run[f'stats.{i}'] for i in range(3)], group, run['base'],
+                params['norm_type'], classes)
+            gaps.append(abs(values[0] - values[1]) / abs(values[1]))
+            check(gaps[-1] < TIE_TOL, f'{phase}: {spk} warps {warps[spk]} '
+                  f'and {single_warps[spk]} are not tied: relative objective '
+                  f'gap {gaps[-1]:.3g}')
+    edges = (params['min_warp'], params['max_warp'])
+    inside = [spk for spk in speakers
+              if not any(abs(warps[spk] - edge) < 1e-9 for edge in edges)]
+    check(inside, f'{phase}: every warp is at the grid\'s edge')
+
+    def gap(a, b):
+        return float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max())
+
+    errors = {f'{stage}.{field}': gap(dist[f'{stage}.{field}'],
+                                       reference[f'{stage}.{field}'])
+              for stage in ('ubm', 'gmm')
+              for field in ('weights', 'means', 'inv_vars')}
+    corpus_utts = Utterances(training)
+    base_frames = training_frames(vtln_config(), corpus_utts, cmvn=False,
+                                  device='cuda')
+    errors['base transforms on the frames'] = max(
+        action_gap(ours, ref, base_frames)
+        for ours, ref in zip(dist['base'], reference['base']))
+    frames = training_frames(vtln_config(), corpus_utts, cmvn=True,
+                             device='cuda')
+    errors['speaker transforms on the frames'] = max(
+        [action_gap(dist[f'transform/{name}'], reference[f'transform/{name}'],
+                    frames)
+         for name, _, speaker in training if speaker in equal] + [0.0])
+    say(phase, f'VTLN training on {len(training)} utterances of '
+        f'{len(speakers)} speakers ({params["ubm"]["num_gauss"]} Gaussians, '
+        f'{len(vtln.lvtln.warps)} warp classes, {params["num_iters"]} '
+        f'rounds): the {DIST_WORLD} processes hold the same bits; against '
+        f'the single process {len(equal)} of {len(speakers)} warps equal '
+        f'({len(speakers) - len(equal)} proven ties, relative objective gap '
+        f'at most {max(gaps + [0.0]):.3g}), {len(inside)} off the grid\'s '
+        'edge; max-abs (relative past 1) '
+        + ', '.join(f'{k} {v:.3g}' for k, v in errors.items()))
+    say(phase, 'warps by speaker (alpha: processes / single): ' + ', '.join(
+        f'{spk} ({alpha:.3f}): {warps[spk]:.2f} / {single_warps[spk]:.2f}'
+        for spk, (alpha, _, _) in sorted(abx_bench.speaker_profiles(
+            DIST_TRAINING['nspeakers']).items())))
+    for name, err in errors.items():
+        check(err < MODEL_TOL, f'{phase}: {name} {err} >= {MODEL_TOL}')
+
+    ubm_iters = params['ubm']['num_iters_init'] + params['ubm']['num_iters']
+    for rank, report in enumerate(reports):
+        (ubm_calls, ubm_s), (round_calls, round_s) = (
+            report['collectives'][k] for k in ('ubm', 'rounds'))
+        say(phase, f'process {rank}: training wall {report["train_s"]:.3f} s '
+            f'(cold run {report["train_cold_s"]:.3f} s; one process '
+            f'{walls["train"]:.3f} s); UBM {ubm_calls} '
+            f'collectives, {ubm_s * 1e3:.1f} ms host, '
+            f'{ubm_s * 1e3 / ubm_iters:.2f} ms per EM iteration '
+            f'({ubm_iters}); '
+            f'LVTLN rounds {round_calls} collectives, {round_s * 1e3:.1f} ms '
+            f'host, {round_s * 1e3 / params["num_iters"]:.2f} ms per round')
+    say(phase, f'{DIST_WORLD} processes from spawn to exit {spawn:.1f} s; '
+        f'phase time {time.perf_counter() - begin:.1f} s on {card}')
+    return launches
 
 
 # ------------------------------------------------ CREPE: the banded Viterbi
@@ -2282,6 +2694,8 @@ def main():
             errors[name] = max(errors[name], chunk_errors[name])
         for name, count in vtln_slice(card, entries).items():
             launches[name] += count
+        for name, count in distributed_phase(card, workdir, entries).items():
+            launches[name] += count
         launches.update(crepe_slice(card, workdir, entries))
         crepe_full(card, entries)
         bottleneck_phase(card, workdir, entries)
@@ -2320,4 +2734,7 @@ def main():
 
 
 if __name__ == '__main__':
-    main()
+    if sys.argv[1:2] == ['--worker']:
+        distributed_worker(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

@@ -201,19 +201,13 @@ def _utterance_order(tag, seed, phone_names):
     return order
 
 
-def train_warps(workdir, phones, profiles, train_tokens, seed, *, device,
-                log=get_logger('abx-bench', 'warning')):
-    """Train VTLN warps on a held-out training half of the corpus, on
-    ``device``.
-
-    Per speaker, two utterances concatenate ``train_tokens`` fresh
-    realizations of every phone (utterance tags disjoint from the
-    evaluation set). Returns the per-speaker warp dict.
-    """
+def write_training_half(workdir, phones, profiles, train_tokens, seed):
+    """Write the held-out training half of the corpus as WAVs under
+    ``workdir``: per speaker, two utterances that concatenate
+    ``train_tokens`` fresh realizations of every phone (utterance tags
+    disjoint from the evaluation set). Returns the (name, wav, speaker)
+    entries."""
     from shennong_tpu_torch.audio import Audio
-    from shennong_tpu_torch.processor.ubm import DiagUbmProcessor
-    from shennong_tpu_torch.processor.vtln import VtlnProcessor
-    from shennong_tpu_torch.utterances import Utterances
 
     phone_names = sorted(phones)
     items = []
@@ -227,7 +221,20 @@ def train_warps(workdir, phones, profiles, train_tokens, seed, *, device,
             wav = os.path.join(workdir, f'{speaker}-u{utt}.wav')
             Audio(signal, RATE).save(wav)
             items.append((f'{speaker}-u{utt}', wav, speaker))
+    return items
 
+
+def train_warps(workdir, phones, profiles, train_tokens, seed, *, device,
+                log=get_logger('abx-bench', 'warning')):
+    """Train VTLN warps on a held-out training half of the corpus
+    (:func:`write_training_half`), on ``device``. Returns the
+    per-speaker warp dict.
+    """
+    from shennong_tpu_torch.processor.ubm import DiagUbmProcessor
+    from shennong_tpu_torch.processor.vtln import VtlnProcessor
+    from shennong_tpu_torch.utterances import Utterances
+
+    items = write_training_half(workdir, phones, profiles, train_tokens, seed)
     ubm_params = DiagUbmProcessor(
         num_gauss=16, num_iters=2, num_iters_init=3,
         num_frames=100000, seed=0).get_params()

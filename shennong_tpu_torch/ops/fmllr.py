@@ -460,7 +460,7 @@ def lvtln_rounds(feats, fweights, gid, gsel, base, warps,
                  gmm_weights, gmm_means, gmm_inv_vars,
                  num_groups, num_iters, norm_type='offset',
                  logdet_scale=0.0, default_class=0,
-                 min_gaussian_weight=1e-4):
+                 min_gaussian_weight=1e-4, reduce=None):
     """The whole LVTLN estimation loop on the device.
 
     The reference's per-iteration sequence (apply the transforms,
@@ -473,6 +473,12 @@ def lvtln_rounds(feats, fweights, gid, gsel, base, warps,
     ``fweights`` [N] zero on padding), ``gid`` [N] the speaker group of
     each frame, ``gsel`` [N, k] the fixed gaussian selection, ``base``
     [C, D, D] the warp-class base transforms and ``warps`` [C].
+
+    ``reduce``, when given, maps a tuple of statistics to their sums
+    over every process: each round's fMLLR statistics (beta, K, G) and
+    EM accumulators (:func:`shennong_tpu_torch.ops.gmm.em_step`) go
+    through it, so that processes holding a shard of the frames each
+    step the same model (:mod:`shennong_tpu_torch.parallel.distributed`).
 
     Returns (weights, means, inv_vars, transforms [S, D, D+1],
     warps_out [S], best_class [S], objf_impr [S], beta [S]).
@@ -502,6 +508,8 @@ def lvtln_rounds(feats, fweights, gid, gsel, base, warps,
         wi = torch.einsum('nk,nkd->nd', post, sel_iv)
         beta, K, G = _group_stats(onehot, post, wm, wi, xplus, xx,
                                   num_groups)
+        if reduce is not None:
+            beta, K, G = reduce((beta, K, G))
         return solve_warp_classes(
             beta, K, G, base, warps, valid_base, logdet_base,
             norm_type=norm_type, logdet_scale=logdet_scale,
@@ -520,7 +528,8 @@ def lvtln_rounds(feats, fweights, gid, gsel, base, warps,
     for _ in range(num_iters):
         x = apply_transforms(est[0])
         _, *params = gmm_ops.em_step(
-            x, fweights, *params, min_gaussian_weight=min_gaussian_weight)
+            x, fweights, *params, min_gaussian_weight=min_gaussian_weight,
+            reduce=reduce)
         params = tuple(params)
         est = estimate_transforms(params, x)
     return params + est

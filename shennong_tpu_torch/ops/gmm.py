@@ -119,7 +119,7 @@ def accumulate_stats(feats, frame_weights, weights, means, inv_vars):
 
 def em_step(feats, frame_weights, weights, means, inv_vars,
             min_gaussian_weight=1e-4, min_gaussian_occupancy=10.0,
-            min_variance=0.001):
+            min_variance=0.001, reduce=None):
     """One full EM iteration on the device: accumulate + MLE update.
 
     Kaldi MleDiagGmmUpdate: a floored component keeps its mean and
@@ -128,10 +128,17 @@ def em_step(feats, frame_weights, weights, means, inv_vars,
     zero occupancy is padding (the init loop pads the model to its
     final size) and stays dead.
 
+    ``reduce``, when given, maps the tuple of statistics (tot_like,
+    occupancy, mean_acc, var_acc) to their sums over every process
+    before the update (the multi-process trainer,
+    :mod:`shennong_tpu_torch.parallel.distributed`).
+
     Returns (tot_like, new_weights, new_means, new_inv_vars).
     """
-    tot_like, occupancy, mean_acc, var_acc = accumulate_stats(
-        feats, frame_weights, weights, means, inv_vars)
+    stats = accumulate_stats(feats, frame_weights, weights, means, inv_vars)
+    if reduce is not None:
+        stats = reduce(stats)
+    tot_like, occupancy, mean_acc, var_acc = stats
     total = occupancy.sum()
     prob = torch.where(
         total > 0, occupancy / torch.clamp_min(total, 1e-10),
@@ -152,17 +159,18 @@ def em_step(feats, frame_weights, weights, means, inv_vars,
 
 def em_steps(feats, frame_weights, weights, means, inv_vars, num_iters,
              min_gaussian_weight=1e-4, min_gaussian_occupancy=10.0,
-             min_variance=0.001):
+             min_variance=0.001, reduce=None):
     """``num_iters`` EM iterations, enqueued back to back on the device
-    with no host synchronization between them. Returns (tot_like of the
-    last iteration, weights, means, inv_vars)."""
+    with no host synchronization between them (but ``reduce``'s, see
+    :func:`em_step`). Returns (tot_like of the last iteration, weights,
+    means, inv_vars)."""
     tot_like = torch.zeros((), dtype=feats.dtype, device=feats.device)
     for _ in range(num_iters):
         tot_like, weights, means, inv_vars = em_step(
             feats, frame_weights, weights, means, inv_vars,
             min_gaussian_weight=min_gaussian_weight,
             min_gaussian_occupancy=min_gaussian_occupancy,
-            min_variance=min_variance)
+            min_variance=min_variance, reduce=reduce)
     return tot_like, weights, means, inv_vars
 
 

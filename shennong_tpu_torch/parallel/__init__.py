@@ -1,4 +1,5 @@
-"""Batched execution of the pipeline's pass 1 on one device.
+"""Batched execution of the pipeline's pass 1 on one device, and the
+multi-process extraction and training (:mod:`.distributed`).
 
 :class:`BatchExecutor` is exported lazily (PEP 562): the executor
 imports the processors, which import this package's other modules.

@@ -1,5 +1,6 @@
 """The pipeline's pass 1, the GMM-training front-end and the fused
-MFCC + pitch pipeline, each one program per padded utterance batch.
+MFCC + pitch pipeline, each one program per padded utterance batch; the
+training steps of the multi-process trainers.
 
 Counterpart of :func:`shennong_tpu.parallel.fused.pass_one_program`:
 everything pass 1 needs from a padded signal batch, computed on one
@@ -8,7 +9,20 @@ device without host round trips between stages -- the feature frames
 weight the CMVN statistics, and the post-processed Kaldi pitch. The
 reference's ``pack_payload`` (one fetch per batch through a relay) has
 no counterpart: the executor copies each output to pinned host memory.
+
+The step makers (:func:`make_em_train_steps`, :func:`make_accumulate_step`,
+:func:`make_lvtln_round_step`, :func:`make_lvtln_train_steps`) are the
+counterparts of the JAX package's sharded steps: they take a
+``torch.distributed`` process group (None for the default one) where
+JAX takes a device mesh. Each process passes its own frames and the
+same model; the float64 statistics accumulate on the process's device
+and are summed over the group by
+:func:`shennong_tpu_torch.parallel.distributed.allreduce_tensors`
+(bit-identical on every process), and every process applies the same
+update. In a group of one they are the single-process functions.
 """
+
+import functools
 
 import torch
 
@@ -198,3 +212,93 @@ def ubm_frontend_program(signals, nsamples, mel_weights, mfcc_opts,
     rank = torch.cumsum(w_init, dim=1) - 1.0
     w_em = w_init * (torch.remainder(rank, float(subsample)) == 0)
     return feats, w_init, w_em, w_init.sum()
+
+
+def _reducer(group):
+    from shennong_tpu_torch.parallel.distributed import allreduce_tensors
+    return functools.partial(allreduce_tensors, group=group)
+
+
+def make_em_train_steps(group, num_iters, min_gaussian_weight=1e-4,
+                        min_gaussian_occupancy=10.0, min_variance=0.001):
+    """``num_iters`` EM iterations over the frames of every process of
+    ``group``.
+
+    Returns (flat [N, D], fweights [N], weights, means, inv_vars) ->
+    (tot_like, weights, means, inv_vars), the process's own frames and
+    their 0/1 weights (zero on padding): each iteration sums the
+    statistics over the group before the floored update of
+    :func:`shennong_tpu_torch.ops.gmm.em_step`.
+    """
+    from shennong_tpu_torch.ops import gmm as gmm_ops
+
+    return functools.partial(
+        gmm_ops.em_steps, num_iters=num_iters,
+        min_gaussian_weight=min_gaussian_weight,
+        min_gaussian_occupancy=min_gaussian_occupancy,
+        min_variance=min_variance, reduce=_reducer(group))
+
+
+def make_accumulate_step(group):
+    """The EM statistics over the frames of every process of ``group``:
+    (flat, fweights, weights, means, inv_vars) -> (tot_like, occupancy,
+    mean_acc, var_acc), summed over the group, for the updates that run
+    on the host (the component-removing one changes the model's
+    shape)."""
+    from shennong_tpu_torch.ops import gmm as gmm_ops
+
+    reduce = _reducer(group)
+
+    def accumulate(flat, fweights, weights, means, inv_vars):
+        return reduce(gmm_ops.accumulate_stats(
+            flat, fweights, weights, means, inv_vars))
+    return accumulate
+
+
+def make_lvtln_round_step(group, num_groups, num_gselect=15,
+                          norm_type='offset', logdet_scale=0.0,
+                          default_class=0):
+    """One LVTLN estimation round over the frames of every process of
+    ``group``.
+
+    Returns (feats [N, D], fweights [N], gid [N], base [C, D, D], warps
+    [C], gmm_weights, gmm_means, gmm_inv_vars) -> (transforms [S, D,
+    D+1], warps_out [S], best_class [S], objf_impr [S], beta [S]): each
+    process selects the ``num_gselect`` best components of its frames,
+    the per-group fMLLR statistics are summed over the group and every
+    process solves the same per-(group, warp-class) objective; the first
+    round of :func:`shennong_tpu_torch.ops.fmllr.lvtln_rounds`.
+    """
+    from shennong_tpu_torch.ops import fmllr as fmllr_ops
+    from shennong_tpu_torch.ops import gmm as gmm_ops
+
+    reduce = _reducer(group)
+
+    def round_step(feats, fweights, gid, base, warps, weights, means,
+                   inv_vars):
+        _, gsel = gmm_ops.gaussian_selection(
+            feats, weights, means, inv_vars, num_gselect)
+        return fmllr_ops.lvtln_rounds(
+            feats, fweights, gid, gsel, base, warps, weights, means,
+            inv_vars, num_groups=num_groups, num_iters=0,
+            norm_type=norm_type, logdet_scale=logdet_scale,
+            default_class=default_class, reduce=reduce)[3:]
+    return round_step
+
+
+def make_lvtln_train_steps(group, num_groups, num_iters,
+                           norm_type='offset', logdet_scale=0.0,
+                           default_class=0, min_gaussian_weight=1e-4):
+    """The whole LVTLN estimation loop over the frames of every process
+    of ``group``: (feats, fweights, gid, gsel, base, warps, gmm_weights,
+    gmm_means, gmm_inv_vars) -> the outputs of
+    :func:`shennong_tpu_torch.ops.fmllr.lvtln_rounds`, whose every
+    round sums its fMLLR statistics and EM accumulators over the
+    group."""
+    from shennong_tpu_torch.ops import fmllr as fmllr_ops
+
+    return functools.partial(
+        fmllr_ops.lvtln_rounds, num_groups=num_groups, num_iters=num_iters,
+        norm_type=norm_type, logdet_scale=logdet_scale,
+        default_class=default_class,
+        min_gaussian_weight=min_gaussian_weight, reduce=_reducer(group))

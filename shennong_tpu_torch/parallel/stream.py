@@ -52,12 +52,24 @@ def as_int16_if_lossless(signals):
     return as_i16 if np.array_equal(as_i16, signals) else signals
 
 
+def streamed_order(utterances):
+    """Indices of ``utterances`` in streaming order: sorted by scanned
+    sample count, ties keeping collection order (a stable sort).
+
+    The order of the rows a stream yields; distributed UBM training
+    indexes the global voiced-frame sequence in it
+    (:func:`shennong_tpu_torch.parallel.distributed.train_ubm`).
+    """
+    utterances = list(utterances)
+    return sorted(range(len(utterances)),
+                  key=lambda i: _scan_count(utterances[i]))
+
+
 def plan_batches(utterances, batch_size):
     """Partition utterances into batches of at most ``batch_size``,
-    sorted by scanned length (stable). Returns a list of lists."""
+    in :func:`streamed_order`. Returns a list of lists."""
     utterances = list(utterances)
-    order = sorted(range(len(utterances)),
-                   key=lambda i: _scan_count(utterances[i]))
+    order = streamed_order(utterances)
     return [[utterances[i] for i in order[start:start + batch_size]]
             for start in range(0, len(order), batch_size)]
 

@@ -193,25 +193,42 @@ def extract_features(configuration, utterances, warps=None, *, device,
         cache = SignalCache(device=device)
         manager.warps = _train_warps(
             manager, utterances, device, generator, cache)
+    utterances = list(utterances)
+    results = {}
+
+    def pass_two(triplets):
+        results.update(_pass_two(manager, triplets, log))
+
+    _pass_one(manager, utterances, device, generator, log, cache, pass_two)
+    return FeaturesCollection(
+        {utt.name: results[utt.name] for utt in utterances})
+
+
+def _pass_one(manager, utterances, device, generator, log, cache, on_group):
+    """Pass 1 over ``utterances`` by the path chosen up front, their
+    CMVN statistics accumulated in ``manager.cmvn_stats``.
+
+    ``on_group(triplets)`` takes the (utterance, features, pitch-or-None)
+    triplets of complete CMVN groups: on the fused path each group as
+    soon as it has landed, its statistics accumulated (pass 2 then
+    overlaps pass 1, and a failure in ``on_group`` stops pass 1 at
+    once); on the other paths every utterance in one call. ``cache``
+    replays the signals VTLN training uploaded, or is None.
+    """
     rates = set(
         meta.sample_rate for meta in manager.audio_metadata.values())
-    utterances = list(utterances)
-
     if len(rates) != 1 or manager.features == 'bottleneck':
         log.debug('per-utterance pass 1 of %s over %d sample rates',
                   manager.features, len(rates))
-        triplets = [
+        on_group([
             _extract_pass_one(utt, manager, device, generator, log)
-            for utt in utterances]
+            for utt in utterances])
     elif _fits_fused(manager, utterances):
-        return _fused_extract(
-            manager, utterances, device, generator, log, cache)
+        _fused_pass_one(
+            manager, utterances, device, generator, log, cache, on_group)
     else:
-        triplets = _stagewise_pass_one(
-            manager, utterances, device, generator, log, cache)
-    results = _pass_two(manager, triplets, log)
-    return FeaturesCollection(
-        {utt.name: results[utt.name] for utt in utterances})
+        on_group(_stagewise_pass_one(
+            manager, utterances, device, generator, log, cache))
 
 
 def _train_warps(manager, utterances, device, generator, cache):
@@ -414,10 +431,11 @@ def _with_audio_properties(manager, utterance, features):
     features.properties['audio']['duration'] = utterance.duration
 
 
-def _fused_extract(manager, utterances, device, generator, log, cache):
-    """The fused pass 1, with each CMVN group's pass 2 as soon as the
-    group has landed; ``cache`` replays the signals VTLN training
-    uploaded, or is None."""
+def _fused_pass_one(manager, utterances, device, generator, log, cache,
+                    on_group):
+    """The fused pass 1, handing each CMVN group's triplets to
+    ``on_group`` as soon as the group has landed (see
+    :func:`_pass_one`)."""
     config = manager.config
     first = utterances[0]
     with_vad = 'cmvn' in config and config['cmvn']['with_vad']
@@ -442,7 +460,7 @@ def _fused_extract(manager, utterances, device, generator, log, cache):
     group_of = {
         name: key for key, names in groups.items() for name in names}
     pending = {key: len(names) for key, names in groups.items()}
-    landed, stats, results = {}, {}, {}
+    landed, stats = {}, {}
 
     def on_utterance(name, features, vad, pitch):
         utterance = by_name[name]
@@ -454,20 +472,16 @@ def _fused_extract(manager, utterances, device, generator, log, cache):
         key = group_of[name]
         pending[key] -= 1
         if pending[key] == 0:
-            # the group is complete: its pass 2 runs now, and a failure
+            # the group is complete: it goes on now, and a failure
             # propagates through the executor and stops pass 1
             if with_cmvn:
                 for member in groups[key]:
                     manager.cmvn_stats[key] += stats.pop(member)
-            results.update(_pass_two(
-                manager, [landed.pop(member) for member in groups[key]],
-                log))
+            on_group([landed.pop(member) for member in groups[key]])
 
-    log.debug('fused pass 1 with pass 2 per group over %d groups',
+    log.debug('fused pass 1, handing on %d groups as they land',
               len(groups))
     executor.run(utterances, on_utterance=on_utterance)
-    return FeaturesCollection(
-        {utt.name: results[utt.name] for utt in utterances})
 
 
 def _stagewise_pass_one(manager, utterances, device, generator, log,

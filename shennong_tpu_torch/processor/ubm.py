@@ -317,8 +317,21 @@ class DiagUbmProcessor(BaseProcessor):
             torch.ones(feats.shape[0], dtype=GMM_DTYPE, device=device),
             num_gauss_init, feats.shape[0])
 
+    def _local_steps(self, feats_dev, weights_dev):
+        """The default ``(em_fn, accumulate_fn)`` of the EM loops: the
+        iterations and the statistics over ``feats_dev`` and its 0/1
+        frame weights ``weights_dev``, on their device."""
+        def em_fn(params, num_iters):
+            return gmm_ops.em_steps(
+                feats_dev, weights_dev, *params, num_iters=num_iters,
+                min_gaussian_weight=self._min_gaussian_weight)
+
+        def accumulate_fn(params):
+            return gmm_ops.accumulate_stats(feats_dev, weights_dev, *params)
+        return em_fn, accumulate_fn
+
     def _init_em_loop(self, feats_dev, weights_dev, num_gauss_init,
-                      nframes_log):
+                      nframes_log, em_fn=None, accumulate_fn=None):
         """The init EM-with-splitting loop on device-resident data.
 
         ``weights_dev`` holds 0/1 per-frame selection weights. The model
@@ -328,8 +341,18 @@ class DiagUbmProcessor(BaseProcessor):
         With ``remove_low_count_gaussians`` (the reference applies it on
         every init iteration) the updates run on the host, the
         statistics on the device.
+
+        ``em_fn(params, num_iters) -> (tot_like, weights, means,
+        inv_vars)`` and ``accumulate_fn(params) -> (tot_like, occupancy,
+        mean_acc, var_acc)`` replace the iterations and the statistics
+        over ``feats_dev``: the multi-process trainer
+        (:func:`shennong_tpu_torch.parallel.distributed.train_ubm`)
+        passes steps whose statistics sum over every process.
         """
         device = feats_dev.device
+        local_em, local_accumulate = self._local_steps(feats_dev, weights_dev)
+        em_fn = em_fn or local_em
+        accumulate_fn = accumulate_fn or local_accumulate
         cur_num_gauss = num_gauss_init
         gauss_inc = int((self.num_gauss - num_gauss_init)
                         / (max(self.num_iters_init, 1) / 2))
@@ -359,8 +382,7 @@ class DiagUbmProcessor(BaseProcessor):
         i = 0
         while i < self.num_iters_init:
             if remove:
-                tot_like, occ, macc, vacc = gmm_ops.accumulate_stats(
-                    feats_dev, weights_dev, *params)
+                tot_like, occ, macc, vacc = accumulate_fn(params)
                 new = gmm_ops.mle_update(
                     host(occ, live), host(macc, live), host(vacc, live),
                     *[host(p, live) for p in params],
@@ -378,9 +400,7 @@ class DiagUbmProcessor(BaseProcessor):
                 # enqueued at once
                 run = (self.num_iters_init - i
                        if cur_num_gauss >= self.num_gauss else 1)
-                tot_like, *params = gmm_ops.em_steps(
-                    feats_dev, weights_dev, *params, num_iters=run,
-                    min_gaussian_weight=self._min_gaussian_weight)
+                tot_like, *params = em_fn(params, run)
                 i += run
             if self.log.isEnabledFor(10):  # logging.DEBUG
                 self.log.debug(
@@ -458,13 +478,27 @@ class DiagUbmProcessor(BaseProcessor):
             weights = w_init
             avail = num_read
 
+        def frames_at(picks):
+            rows = order[torch.as_tensor(picks, device=device)]
+            return flat[rows].cpu().numpy().astype(np.float64)
+
+        self._init_from_sums(
+            *selected_sums(flat, weights), avail, num_gauss_init, kept,
+            frames_at)
+        self._init_em_loop(flat, weights, num_gauss_init, avail)
+
+    def _init_from_sums(self, sums, sqsums, avail, num_gauss_init, kept,
+                        frames_at):
+        """The initial model of :meth:`initialize_gmm_device`: the
+        variance of the ``avail`` selected frames from their float64
+        ``sums`` and ``sqsums``, and means at ``num_gauss_init`` distinct
+        random frames of them, drawn from the processor's random state.
+        ``kept`` maps the selection to the voiced-frame sequence (the
+        reservoir's indices, or None for all of it) and
+        ``frames_at(indices)`` returns the [k, D] float64 frames at
+        those indices of the sequence."""
         if avail < 10 * num_gauss_init:
             raise ValueError(f'Too few frames to train on ({avail} frames)')
-
-        flat64 = flat.to(torch.float64)
-        weights64 = weights.to(torch.float64)[:, None]
-        sums = (flat64 * weights64).sum(dim=0).cpu().numpy()
-        sqsums = (flat64 * flat64 * weights64).sum(dim=0).cpu().numpy()
         mean = sums / avail
         var = sqsums / avail - mean ** 2
         if var.max() <= 0:
@@ -473,14 +507,10 @@ class DiagUbmProcessor(BaseProcessor):
 
         chosen = self._rng.choice(avail, num_gauss_init, replace=False)
         picks = kept[chosen] if kept is not None else chosen
-        rows_chosen = order[torch.as_tensor(picks, device=device)]
-        means0 = flat[rows_chosen].cpu().numpy().astype(np.float64)
         self.gmm = DiagGmm(
             np.full(num_gauss_init, 1.0 / num_gauss_init),
-            means0,
+            frames_at(picks),
             np.tile(1.0 / var, (num_gauss_init, 1)))
-
-        self._init_em_loop(flat, weights, num_gauss_init, avail)
 
     @staticmethod
     def _flat_frames(feats_collection):
@@ -749,28 +779,40 @@ class DiagUbmProcessor(BaseProcessor):
                     utterances, device, generator)
         self.log.info('Training for %s iterations', self.num_iters)
 
+        self._main_em(feats_dev, weights_dev)
+        self.log.info('Done training UBM.')
+
+    def _main_em(self, feats_dev, weights_dev, em_fn=None,
+                 accumulate_fn=None):
+        """The ``num_iters`` main EM iterations, under the span
+        ``ubm.em``; ``em_fn`` and ``accumulate_fn`` as in
+        :meth:`_init_em_loop`."""
+        local_em, local_accumulate = self._local_steps(feats_dev, weights_dev)
+        em_fn = em_fn or local_em
+        accumulate_fn = accumulate_fn or local_accumulate
         with torch.profiler.record_function('ubm.em'):
             params = self.gmm.as_tensors(feats_dev.device)
             if self.num_iters > 0 and self.remove_low_count_gaussians:
                 # the final update removes components (a shape change):
                 # it runs on the host
-                _, *params = gmm_ops.em_steps(
-                    feats_dev, weights_dev, *params,
-                    num_iters=self.num_iters - 1,
-                    min_gaussian_weight=self._min_gaussian_weight)
-                _, occ, mean_acc, var_acc = gmm_ops.accumulate_stats(
-                    feats_dev, weights_dev, *params)
+                _, *params = em_fn(params, self.num_iters - 1)
+                _, occ, mean_acc, var_acc = accumulate_fn(params)
                 self.gmm = _gmm_from_tensors(params)
                 self.estimate(tuple(
                     a.cpu().numpy().astype(np.float64)
                     for a in (occ, mean_acc, var_acc)))
             elif self.num_iters > 0:
-                _, *params = gmm_ops.em_steps(
-                    feats_dev, weights_dev, *params,
-                    num_iters=self.num_iters,
-                    min_gaussian_weight=self._min_gaussian_weight)
+                _, *params = em_fn(params, self.num_iters)
                 self.gmm = _gmm_from_tensors(params)
-        self.log.info('Done training UBM.')
+
+
+def selected_sums(flat, weights):
+    """Float64 host sums and sums of squares [D] of the rows of ``flat``
+    under the 0/1 ``weights``, summed on the device."""
+    flat64 = flat.to(torch.float64)
+    weights64 = weights.to(torch.float64)[:, None]
+    return ((flat64 * weights64).sum(dim=0).cpu().numpy(),
+            (flat64 * flat64 * weights64).sum(dim=0).cpu().numpy())
 
 
 def _prune_min_post(post, min_post):

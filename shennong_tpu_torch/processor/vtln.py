@@ -698,24 +698,32 @@ class VtlnProcessor(BaseProcessor):
             padded(np.concatenate(sel_list), np.int32), group_names)
 
     def _rounds_fused_arrays(self, ubm, feats, fweights, gid, gsel,
-                             group_names):
+                             group_names, rounds=None):
         """Run the LVTLN rounds on prepared flat device tensors (rows
         with zero weight inert), under the span ``vtln.rounds``; sets
         ``self.transforms``/``self.warps`` per group and updates the
-        UBM, like the host rounds."""
+        UBM, like the host rounds. ``rounds`` replaces
+        :func:`~shennong_tpu_torch.ops.fmllr.lvtln_rounds` at this
+        processor's settings: the multi-process trainer passes
+        :func:`shennong_tpu_torch.parallel.fused.make_lvtln_train_steps`'s
+        rounds, with the same arguments."""
         device = feats.device
+        if rounds is None:
+            def rounds(*args):
+                return lvtln_rounds(
+                    *args, num_groups=len(group_names),
+                    num_iters=self.num_iters, norm_type=self.norm_type,
+                    logdet_scale=self.logdet_scale,
+                    default_class=self.lvtln.default_class,
+                    min_gaussian_weight=ubm.min_gaussian_weight)
         with torch.profiler.record_function('vtln.rounds'):
-            out = lvtln_rounds(
+            out = rounds(
                 feats, fweights, gid, gsel,
                 torch.as_tensor(self.lvtln.transforms, dtype=GMM_DTYPE,
                                 device=device),
                 torch.as_tensor(self.lvtln.warps, dtype=GMM_DTYPE,
                                 device=device),
-                *ubm.gmm.as_tensors(device),
-                num_groups=len(group_names), num_iters=self.num_iters,
-                norm_type=self.norm_type, logdet_scale=self.logdet_scale,
-                default_class=self.lvtln.default_class,
-                min_gaussian_weight=ubm.min_gaussian_weight)
+                *ubm.gmm.as_tensors(device))
             (gmm_w, gmm_m, gmm_iv, transforms, _, best, impr, beta) = (
                 o.cpu().numpy() for o in out)
 

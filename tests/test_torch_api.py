@@ -38,6 +38,13 @@ import shennong_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+_MESH = (
+    "device meshes: one JAX process drives N devices over a mesh, while "
+    "the port runs one process per device and its data axis is the "
+    "torch.distributed process group (parallel.distributed); the mesh "
+    "paths of the executor, CREPE and bottleneck have no counterpart for "
+    "the same reason; no item")
+
 #: names of shennong_tpu without a counterpart in the port: 'module' or
 #: 'module:Name[.member]' -> why, and the ROADMAP item that ports it
 EXEMPT = {
@@ -50,22 +57,18 @@ EXEMPT = {
     'models.crepe:forward': (
         'the CNN is the nn.Module models.crepe.Crepe, whose forward is '
         'this function; no item'),
-    'parallel.mesh': 'device meshes: A13',
-    'parallel:data_mesh': 'device meshes: A13',
-    'parallel:get_default_mesh': 'device meshes: A13',
-    'parallel:set_default_mesh': 'device meshes: A13',
-    'parallel.distributed': 'multi-process extraction and training: A13',
-    'parallel.fused:make_gmm_training_step': 'sharded training steps: A13',
-    'parallel.fused:make_em_train_steps': 'sharded training steps: A13',
-    'parallel.fused:make_accumulate_step': 'sharded training steps: A13',
-    'parallel.fused:make_lvtln_round_step': 'sharded training steps: A13',
-    'parallel.fused:make_lvtln_train_steps': 'sharded training steps: A13',
+    'parallel.mesh': _MESH,
+    'parallel:data_mesh': _MESH,
+    'parallel:get_default_mesh': _MESH,
+    'parallel:set_default_mesh': _MESH,
+    'parallel.fused:make_gmm_training_step': (
+        'a sharded MFCC-and-EM step that nothing in the JAX package calls '
+        'and no test holds; no item'),
     'parallel.profiler': 'StageTimer, Counters, trace: A7',
     'parallel.batch': 'load_signals, make_batches: A7',
     'parallel.stream:recycle': 'the upload pool accounting: A7',
     'parallel.stream:pool_peak_bytes': 'the upload pool accounting: A7',
     'parallel.stream:pool_reset_peak': 'the upload pool accounting: A7',
-    'parallel.stream:streamed_order': 'the upload pool accounting: A7',
     'utils:get_njobs': 'njobs comes with pass-2 workers: A7',
     'utils:enable_compilation_cache': (
         "JAX's persistent compile cache; eager PyTorch compiles nothing "

@@ -33,7 +33,10 @@ real-valued costs or a near-tie proven in float64 by
 ``chip_smoke.dtw_against_plain``, at most one pair in 1000; equal on
 integer-valued ones, over repeated launches), and the 'ci' ABX
 benchmark on the card against the CPU (warps equal, errors within
-0.005).
+0.005). Two processes on the card over gloo run the main path and the
+VTLN training (``tests/test_torch_distributed.py``'s worker): their
+transforms and warps the same bits, their features 1e-5 from the
+single-process card run.
 """
 
 import copy
@@ -685,3 +688,28 @@ def test_abx_ci_matches_cpu(cuda_device):
             for label, value in gpu['errors'][task][feature].items():
                 assert abs(value - cpu['errors'][task][feature][label]) \
                     < 0.005, (task, feature, label)
+
+
+def test_two_processes_on_one_card(cuda_device, tmp_path, monkeypatch):
+    """Two processes on the card over gloo (parallel/distributed.py):
+    the main path (both Viterbi kernels launched in each) and the VTLN
+    training; the transforms and warps the same bits in both, the merged
+    features equal to the single-process card run (1e-5)."""
+    from tests import test_torch_distributed as dist
+
+    results = dist.outputs('cuda', 2, str(tmp_path))
+    dist.assert_same_bits(results, ('vtln.',))
+    for result in results:
+        for name in ('viterbi_forward', 'viterbi_backtrace'):
+            assert result[f'launches.{name}'] > 0, name
+    defaults = list(energy.EnergyProcessor.__init__.__defaults__)
+    defaults[3] = 0.0  # the energy VAD's dither, as in the processes
+    monkeypatch.setattr(
+        energy.EnergyProcessor.__init__, '__defaults__', tuple(defaults))
+    single = pipeline.extract_features(
+        dist.main_config(), dist.utterances('spanning', str(tmp_path)),
+        device=cuda_device)
+    merged = dist.merged(results, 'extract')
+    assert sorted(merged) == sorted(single.keys())
+    for name in single:
+        dist.close(merged[name], single[name].data, dist.FEATURES_TOL)
