@@ -30,6 +30,16 @@ generated corpus of 256 utterances (4 s and 6 s, 16 speakers):
   whole extraction on a 12-minute utterance, both kernels at the chunk
   shape of hour-scale pitch [8, 8400, 417], and the stage-wise and
   mixed-sample-rate paths on the card against the CPU;
+- the host layer around the device (``host plane``): the counters of
+  one MFCC slice run (``njobs=4``) checked against its 4 batches, the
+  upload pool's peak over that run, over a corpus of 21 batches in
+  three signal buckets and over the long-audio run against the most
+  buffers the plan's batch shapes allow, a ``profiler.trace`` file that
+  names both Viterbi kernels and the ``pass2`` span, the share of pass
+  2 that ran before pass 1's last wait ended, and ``speech-features-torch
+  warmup`` then a warmed and a cold first ``extract_features`` in fresh
+  processes (``python3 chip_smoke.py --first-call warm|cold
+  DIRECTORY``), their features against this process's;
 - the VTLN slice (BASELINE config 4): ``extract_features`` with the
   MFCC + Kaldi pitch + CMVN + delta configuration and a ``vtln``
   section at full width (a 64-component UBM, 41 warp classes, 15
@@ -1057,6 +1067,292 @@ def cluster_sweep(phase):
         say(phase, f'viterbi_forward at {shape} in clusters of {size}: '
             f'{ms:.3f} ms ({ms * 1e3 / shape[1]:.3f} us per frame), history '
             'bit-equal')
+
+
+# ------------------------------------------------------------ host plane
+
+HOST_DEPTH = 2           # the fused executor's and the stream's depth
+SPREAD_DURATIONS = (1.0, 1.5, 2.2)   # seconds: three signal buckets
+SPREAD_BATCHES = 7       # batches of 64 of each duration
+
+
+def make_spread_corpus(directory):
+    """``SPREAD_BATCHES`` batches of 64 speech-like utterances of each of
+    ``SPREAD_DURATIONS``, in turn: a plan of 21 batches over three
+    signal buckets, more batches of each than the fused run holds at
+    once. Returns the (name, path, speaker) entries."""
+    import scipy.io.wavfile
+
+    os.makedirs(directory, exist_ok=True)
+    entries = []
+    count = SPREAD_BATCHES * 64 * len(SPREAD_DURATIONS)
+    for index in range(count):
+        duration = SPREAD_DURATIONS[index % len(SPREAD_DURATIONS)]
+        path = os.path.join(directory, f'spread{index:04d}.wav')
+        scipy.io.wavfile.write(
+            path, RATE, speech_like(int(duration * RATE), seed=10000 + index))
+        entries.append((f'spread{index:04d}', path,
+                        f'spk{index % NUM_SPEAKERS:02d}'))
+    return entries
+
+
+def pool_bound(shapes):
+    """The most bytes of int16 batch buffers a fused run over a plan of
+    batches of these (rows, samples) shapes can hold: a buffer is made
+    only when none of its shape is pooled, and at most 2 * depth + 1
+    batches are alive at once (depth decoding ahead, depth on the
+    device, the one being dispatched), so each shape has at most that
+    many buffers, and never more than its batches. The bound grows
+    with the plan's shapes, not with its length."""
+    import collections
+
+    per_shape = collections.Counter(shapes)
+    return sum(min(count, 2 * HOST_DEPTH + 1) * 2 * rows * samples
+               for (rows, samples), count in per_shape.items())
+
+
+def host_plane(card, workdir, entries):
+    """The host layer around the device, on the MFCC slice:
+
+    1. counters: one run with ``njobs=4``; one dispatch a batch, the
+       int16 signals plus ``nsamples`` up, and decode, fetch and pass-2
+       time above 0;
+    2. the upload pool: its peak over that run on the process's pool
+       (what earlier phases left pooled counts), then over a corpus of
+       21 batches in three buckets and over the long-audio run (an hour
+       and 16 utterances, the stage-wise path), each from a new pool,
+       against :func:`pool_bound`;
+    3. ``profiler.trace`` around one run: the file it wrote names both
+       Viterbi kernels and the ``pass2`` span; the share of pass 2's
+       host time that ran before the last ``pass1.wait`` ended;
+    4. warm-up in fresh processes: the CLI's ``warmup``, then
+       ``pipeline.warmup`` and a timed first ``extract_features``,
+       then a cold first ``extract_features``; both outputs against
+       this process's run, every random source at 0.
+
+    Runs after the long-audio phase, whose hour it extracts again.
+    Returns the Viterbi launches of its runs in this process.
+    """
+    import collections
+    import glob
+
+    from shennong_tpu_torch import FeaturesCollection, Utterances, pipeline
+    from shennong_tpu_torch.ops import cuda_viterbi, dtw, viterbi
+    from shennong_tpu_torch.ops.framing import bucket_size
+    from shennong_tpu_torch.parallel import profiler, stream
+
+    phase = 'host plane'
+    begin = time.perf_counter()
+    config = slice_config('mfcc')
+    utterances = Utterances(entries)
+    audio_seconds = sum(utt.duration for utt in utterances)
+    launches = collections.Counter()
+
+    def batch_shapes(utts, batch_size):
+        return [(len(chunk), bucket_size(
+            max(stream._scan_count(u) for u in chunk)))
+            for chunk in stream.plan_batches(utts, batch_size)]
+
+    def extract(utts, configuration=config, **kwargs):
+        """One ``extract_features`` on the card, its launches counted
+        from 0 just before it; returns (features, wall seconds)."""
+        torch.cuda.synchronize()
+        cuda_viterbi.reset_launches()
+        start = time.perf_counter()
+        out = pipeline.extract_features(
+            copy.deepcopy(configuration), utts, device='cuda', **kwargs)
+        torch.cuda.synchronize()
+        launches.update(cuda_viterbi.LAUNCHES)
+        return out, time.perf_counter() - start
+
+    # 1 and 2: the counters and the process's pool over one run, njobs=4
+    shapes = batch_shapes(utterances, 64)
+    largest = 2 * max(rows * samples for rows, samples in shapes)
+    expected_up = 2 * sum(rows * samples for rows, samples in shapes) \
+        + 4 * len(utterances)
+    profiler.counters.reset()
+    stream.pool_reset_peak()
+    held = stream.pool_peak_bytes()  # what earlier phases left pooled
+    _, wall = extract(utterances, njobs=4)
+    snap = profiler.counters.snapshot()
+    peak = stream.pool_peak_bytes()
+    say(phase, f'counters of one MFCC slice run (njobs=4, wall {wall:.3f} '
+        f's, xRT {audio_seconds / wall:.1f}): ' + ', '.join(
+            f'{key} {snap[key]:.6g}' for key in sorted(snap)))
+    check(snap.get('dispatches') == len(shapes) == 4,
+          f'{snap.get("dispatches")} dispatches for {len(shapes)} batches')
+    check(snap.get('bytes_up') == expected_up,
+          f'bytes_up {snap.get("bytes_up")}, the batches hold {expected_up}')
+    for key in ('decode_s', 'fetch_s', 'pass2_s'):
+        check(snap.get(key, 0) > 0, f'counter {key} is not above 0')
+    bound = held + pool_bound(shapes)
+    say(phase, f'the process\'s upload pool over that run: {held} B held '
+        f'at pool_reset_peak() (earlier phases), peak {peak} B, bound held '
+        f'+ {pool_bound(shapes)} B ({(peak - held) / largest:.2f} batches '
+        f'of {largest} B above what was held)')
+    check(held <= peak <= bound, f'pool peak {peak} B past {bound} B')
+
+    spread = Utterances(make_spread_corpus(os.path.join(workdir, 'spread')))
+    shapes = batch_shapes(spread, 64)
+    sizes = {2 * rows * samples for rows, samples in shapes}
+    check(len(sizes) == len(SPREAD_DURATIONS)
+          and len(shapes) == SPREAD_BATCHES * len(SPREAD_DURATIONS),
+          f'the spread corpus plans {len(shapes)} batches of {len(sizes)} '
+          'shapes')
+    stream._pool = stream._BufferPool()
+    out, spread_wall = extract(spread)
+    peak = stream.pool_peak_bytes()
+    check(sorted(out) == sorted(utt.name for utt in spread)
+          and all(np.isfinite(out[name].data).all() for name in out),
+          'the spread corpus misses utterances or has non-finite values')
+    bound = pool_bound(shapes)
+    corpus = 2 * sum(rows * samples for rows, samples in shapes)
+    say(phase, f'upload pool peak over {len(spread)} utterances in '
+        f'{len(shapes)} batches of {len(sizes)} shapes (wall '
+        f'{spread_wall:.3f} s, xRT '
+        f'{sum(utt.duration for utt in spread) / spread_wall:.1f}), from a '
+        f'new pool: {peak} B ({peak / max(sizes):.2f} batches of the '
+        f'largest, {peak / corpus:.3f} of the corpus\'s {corpus} B), bound '
+        f'{bound} B')
+    check(0 < peak <= bound < corpus,
+          f'pool peak {peak} B past {bound} B (the corpus {corpus} B)')
+    shutil.rmtree(os.path.join(workdir, 'spread'), ignore_errors=True)
+
+    hour = Utterances([('hour', os.path.join(workdir, 'hour.wav'), 'spkH')]
+                      + entries[:16])
+    shapes = batch_shapes(list(hour)[1:], 16)
+    stream._pool = stream._BufferPool()
+    _, hour_wall = extract(hour)
+    peak = stream.pool_peak_bytes()
+    bound = pool_bound(shapes)
+    say(phase, f'upload pool peak over the long-audio run (1 h + 16 '
+        f'utterances, wall {hour_wall:.3f} s), from a new pool: {peak} B, '
+        f'bound {bound} B')
+    check(0 < peak <= bound, f'pool peak {peak} B past {bound} B')
+
+    # 3: a trace file names the kernels and the pass2 span
+    logdir = os.path.join(workdir, 'trace')
+    shutil.rmtree(logdir, ignore_errors=True)
+    with profiler.trace(logdir):
+        extract(utterances)
+    files = glob.glob(os.path.join(logdir, '*.pt.trace.json'))
+    check(len(files) == 1, f'trace wrote {files}')
+    with open(files[0]) as fp:
+        events = json.load(fp)['traceEvents']
+    names = {event.get('name', '') for event in events}
+    for kernel in ('viterbi_forward_kernel', 'viterbi_backtrace_kernel'):
+        check(any(kernel in name for name in names),
+              f'the trace names no {kernel}')
+    check('pass2' in names, 'the trace names no pass2 span')
+    spans = [(event['ts'], event['ts'] + event['dur'], event['name'],
+              event['tid']) for event in events
+             if event.get('ph') == 'X' and event.get('name') in (
+                 'pass2', 'pass1.wait')]
+    last_wait = max(end for _, end, name, _ in spans
+                    if name == 'pass1.wait')
+    pass2 = [(s, e, tid) for s, e, name, tid in spans if name == 'pass2']
+    total = sum(e - s for s, e, _ in pass2)
+    before = sum(max(0.0, min(e, last_wait) - s) for s, e, _ in pass2)
+    say(phase, f'trace {os.path.basename(files[0])} '
+        f'({os.path.getsize(files[0]) / 2 ** 20:.1f} MiB): both Viterbi '
+        f'kernels and {len(pass2)} pass2 spans on thread(s) '
+        f'{sorted({tid for _, _, tid in pass2})}; pass2 host '
+        f'{total / 1e3:.3f} ms, of which {before / 1e3:.3f} ms '
+        f'({before / max(total, 1e-9):.3f}) before the last pass1.wait '
+        f'ended')
+
+    # 4: warm-up in fresh processes
+    index = os.path.join(workdir, 'host_plane_index.txt')
+    with open(index, 'w') as fp:
+        for name, path, speaker in entries:
+            fp.write(f'{name} {path} {speaker}\n')
+    config_file = os.path.join(workdir, 'host_plane_config.yaml')
+    with open(config_file, 'w') as fp:
+        fp.write(pipeline.get_default_config(
+            'mfcc', to_yaml=True, with_pitch='kaldi', with_cmvn=True,
+            with_delta=True))
+    built = all(os.path.isfile(cuda_viterbi.library_path(source))
+                for source in (cuda_viterbi._SOURCE, viterbi._SOURCE,
+                               dtw._SOURCE))
+    say(phase, '_build/ was ' + (
+        'warm: the kernel libraries of this checkout were there (this '
+        'run built them), so the fresh processes load them and build '
+        'nothing' if built else 'cold: a fresh process builds them'))
+    start = time.perf_counter()
+    line = subprocess.run(
+        [sys.executable, '-m', 'shennong_tpu_torch.cli', 'warmup',
+         '--device', 'cuda', '-j', '4', config_file, index],
+        cwd=HERE, check=True, capture_output=True, text=True).stdout.strip()
+    say(phase, f'speech-features-torch warmup --device cuda -j 4 (256 '
+        f'utterances): "{line}", the process '
+        f'{time.perf_counter() - start:.1f} s')
+    check(line.startswith('warmed 2 pipeline geometries in '),
+          f'warmup printed {line!r}')
+
+    with energy_dither_off():
+        reference, _ = extract(utterances, zero_randomness(
+            copy.deepcopy(config), 'mfcc'))
+    for mode in ('warm', 'cold'):
+        for suffix in ('npz', 'json'):
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(os.path.join(workdir, f'{mode}.{suffix}'))
+        start = time.perf_counter()
+        subprocess.run(
+            [sys.executable, os.path.join(HERE, 'chip_smoke.py'),
+             '--first-call', mode, workdir],
+            cwd=HERE, check=True)
+        with open(os.path.join(workdir, f'{mode}.json')) as fp:
+            timing = json.load(fp)
+        out = FeaturesCollection.load(os.path.join(workdir, f'{mode}.npz'))
+        check(sorted(out) == sorted(reference),
+              f'the {mode} process misses utterances')
+        worst = max(float(np.abs(out[name].data - reference[name].data)
+                          .max()) for name in reference)
+        check(worst == 0, f'the {mode} process against this one: max-abs '
+              f'{worst}')
+        warmed = (f'pipeline.warmup {timing["warmup_s"]:.3f} s '
+                  f'({timing["geometries"]}), then ' if mode == 'warm'
+                  else '')
+        say(phase, f'{mode} process: {warmed}first extract_features '
+            f'{timing["first_s"]:.3f} s (xRT '
+            f'{audio_seconds / timing["first_s"]:.1f}), launches '
+            f'{timing["launches"]}; the process '
+            f'{time.perf_counter() - start:.1f} s; features equal to this '
+            f'process\'s (max-abs {worst:g})')
+    say(phase, f'phase time {time.perf_counter() - begin:.1f} s')
+    return dict(launches)
+
+
+def first_call(mode, directory):
+    """A fresh process's first ``extract_features`` of the MFCC slice
+    over the corpus index of :func:`host_plane` on the card, every
+    random source at 0, after ``pipeline.warmup`` when ``mode`` is
+    'warm'; writes ``<mode>.npz`` (the features) and ``<mode>.json``
+    (the timings) into ``directory``."""
+    from shennong_tpu_torch import Utterances, pipeline
+    from shennong_tpu_torch.ops import cuda_viterbi
+
+    utterances = Utterances.load(
+        os.path.join(directory, 'host_plane_index.txt'))
+    config = zero_randomness(slice_config('mfcc'), 'mfcc')
+    timing = {}
+    with energy_dither_off():
+        if mode == 'warm':
+            warm = pipeline.warmup(copy.deepcopy(config), utterances,
+                                   device='cuda')
+            timing['warmup_s'] = warm['seconds']
+            timing['geometries'] = warm['geometries']
+        cuda_viterbi.reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = pipeline.extract_features(
+            copy.deepcopy(config), utterances, device='cuda')
+        torch.cuda.synchronize()
+        timing['first_s'] = time.perf_counter() - start
+        timing['launches'] = dict(cuda_viterbi.LAUNCHES)
+    out.save(os.path.join(directory, f'{mode}.npz'))
+    with open(os.path.join(directory, f'{mode}.json'), 'w') as fp:
+        json.dump(timing, fp)
 
 
 # ------------------------------------------------------------ VTLN slice
@@ -2624,12 +2920,13 @@ def profile_layers(phase, config, utterances, wall_s, parts=None, run=None):
     launched inside it; with ``parts``, the run's wall split into
     stages (:func:`print_parts`)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
     from shennong_tpu_torch import pipeline
+    from shennong_tpu_torch.parallel.profiler import profiler_options
 
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
+    # every thread's spans: pass 2 runs on the thread pass-two
+    with profile(**profiler_options()) as prof:
         with torch.profiler.record_function(RUN_SPAN):
             if run is None:
                 pipeline.extract_features(
@@ -2692,6 +2989,8 @@ def main():
         for name, count in counts.items():
             launches[name] += count
             errors[name] = max(errors[name], chunk_errors[name])
+        for name, count in host_plane(card, workdir, entries).items():
+            launches[name] += count
         for name, count in vtln_slice(card, entries).items():
             launches[name] += count
         for name, count in distributed_phase(card, workdir, entries).items():
@@ -2736,5 +3035,7 @@ def main():
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--worker']:
         distributed_worker(int(sys.argv[2]), sys.argv[3])
+    elif sys.argv[1:2] == ['--first-call']:
+        first_call(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -1,11 +1,13 @@
 """The ``speech-features-torch`` command line interface.
 
-Counterpart of the ``config``, ``extract`` and ``convert-crepe``
-commands of :mod:`shennong_tpu.cli`, on the PyTorch port's pipeline: a
-``config`` subcommand generating commented YAML pipeline
-configurations, an ``extract`` subcommand running a pipeline over an
-utterances index file on the device given by ``--device`` (default
-``cuda``; nothing falls back to the CPU when CUDA is missing), and a
+Counterpart of the ``config``, ``extract``, ``warmup`` and
+``convert-crepe`` commands of :mod:`shennong_tpu.cli`, on the PyTorch
+port's pipeline: a ``config`` subcommand generating commented YAML
+pipeline configurations, an ``extract`` subcommand running a pipeline
+over an utterances index file on the device given by ``--device``
+(default ``cuda``; nothing falls back to the CPU when CUDA is missing)
+with ``-j`` threads of audio decode, a ``warmup`` subcommand paying a
+cold process's start-up costs for a corpus's batch geometries, and a
 ``convert-crepe`` subcommand turning a published keras CREPE
 checkpoint into the port's npz weights.
 
@@ -94,6 +96,27 @@ def _command_config(args):
         output.write(config)
 
 
+def _add_device_njobs(parser):
+    parser.add_argument(
+        '--device', default='cuda', metavar='<device>',
+        help="the torch device the extraction runs on, 'cuda' (the "
+        "default), 'cuda:<index>' or 'cpu'; a CUDA device that is not "
+        'available is an error')
+    parser.add_argument(
+        '-j', '--njobs', type=int, default=1, metavar='<int>',
+        help='number of parallel jobs to use, default to %(default)s')
+
+
+def _device(name):
+    """The torch device ``name``; a CUDA device without CUDA raises."""
+    device = torch.device(name)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            f'device {name} requested but no CUDA device is '
+            'available (pass --device cpu to run on the CPU)')
+    return device
+
+
 def _parser_extract(subparsers, epilog):
     parser = subparsers.add_parser(
         'extract',
@@ -102,12 +125,7 @@ def _parser_extract(subparsers, epilog):
         'details',
         epilog=epilog,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-
-    parser.add_argument(
-        '--device', default='cuda', metavar='<device>',
-        help="the torch device the extraction runs on, 'cuda' (the "
-        "default), 'cuda:<index>' or 'cpu'; a CUDA device that is not "
-        'available is an error')
+    _add_device_njobs(parser)
 
     group = parser.add_argument_group('input/output arguments')
     group.add_argument(
@@ -141,12 +159,7 @@ def _command_extract(args):
         level = ('warning', 'info', 'debug')[min(args.verbose, 2)]
         log = logger.get_logger(name='speech-features-torch', level=level)
 
-    device = torch.device(args.device)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(
-            f'device {args.device} requested but no CUDA device is '
-            'available (pass --device cpu to run on the CPU)')
-
+    device = _device(args.device)
     output_file = args.output_file
     if os.path.exists(output_file):
         raise ValueError(f'output file already exists: {output_file}')
@@ -161,10 +174,46 @@ def _command_extract(args):
 
     utterances = Utterances.load(args.utterances)
     features = pipeline.extract_features(
-        args.config, utterances, device=device, log=log)
+        args.config, utterances, njobs=args.njobs, device=device, log=log)
 
     log.info('saving the features to %s', output_file)
     features.save(output_file)
+
+
+def _parser_warmup(subparsers, epilog):
+    parser = subparsers.add_parser(
+        'warmup',
+        description=(
+            'Pay the start-up costs of a cold process for a corpus '
+            'geometry (batch rows x signal buckets, from the audio '
+            'headers): the kernel builds when their library is missing, '
+            'the CUDA context, cuFFT plans, cuBLAS handles and the '
+            'allocators. Call shennong_tpu_torch.pipeline.warmup() at '
+            'server start-up so that the first real extraction runs at '
+            'warm speed.'),
+        epilog=epilog,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    _add_device_njobs(parser)
+    parser.add_argument(
+        'config', metavar='<input-config>', type=str,
+        help='pipeline configuration file in YAML format, as generated '
+        "by the 'speech-features-torch config' command")
+    parser.add_argument(
+        'utterances', metavar='<input-utterances>', type=str,
+        help='utterances index whose corpus geometry to warm')
+
+
+def _command_warmup(args):
+    log = logger.get_logger(name='speech-features-torch', level='info')
+    device = _device(args.device)
+    for filename in (args.config, args.utterances):
+        if not os.path.exists(filename):
+            raise ValueError(f'input file not found: {filename}')
+    out = pipeline.warmup(
+        args.config, Utterances.load(args.utterances), device=device,
+        njobs=args.njobs, log=log)
+    print(f'warmed {out["programs"]} pipeline geometries '
+          f'in {out["seconds"]}s')
 
 
 def _parser_convert_crepe(subparsers, epilog):
@@ -234,11 +283,13 @@ def main():
         'details',
         help="the 'config' command generates configuration templates, "
         "the 'extract' command extracts features given a configuration, "
+        "the 'warmup' command warms a process for a corpus geometry, "
         "the 'convert-crepe' command converts CREPE weights",
         dest='command', required=True)
 
     _parser_config(subparsers, epilog)
     _parser_extract(subparsers, epilog)
+    _parser_warmup(subparsers, epilog)
     _parser_convert_crepe(subparsers, epilog)
 
     args = parser.parse_args()
@@ -246,6 +297,8 @@ def main():
         _command_config(args)
     elif args.command == 'extract':
         _command_extract(args)
+    elif args.command == 'warmup':
+        _command_warmup(args)
     else:
         _command_convert_crepe(args)
 

@@ -224,11 +224,11 @@ def write_training_half(workdir, phones, profiles, train_tokens, seed):
     return items
 
 
-def train_warps(workdir, phones, profiles, train_tokens, seed, *, device,
-                log=get_logger('abx-bench', 'warning')):
+def train_warps(workdir, phones, profiles, train_tokens, seed, njobs=1, *,
+                device, log=get_logger('abx-bench', 'warning')):
     """Train VTLN warps on a held-out training half of the corpus
-    (:func:`write_training_half`), on ``device``. Returns the
-    per-speaker warp dict.
+    (:func:`write_training_half`), on ``device``, decoding on ``njobs``
+    threads. Returns the per-speaker warp dict.
     """
     from shennong_tpu_torch.processor.ubm import DiagUbmProcessor
     from shennong_tpu_torch.processor.vtln import VtlnProcessor
@@ -244,7 +244,8 @@ def train_warps(workdir, phones, profiles, train_tokens, seed, *, device,
         subsample=2, ubm=ubm_params)
     vtln.features['mfcc']['dither'] = 0
     vtln.log.setLevel(log.getEffectiveLevel())
-    return vtln.process(Utterances(items), group_by='speaker', device=device)
+    return vtln.process(Utterances(items), group_by='speaker', njobs=njobs,
+                        device=device)
 
 
 def _make_processor(feature):
@@ -272,10 +273,10 @@ def _make_processor(feature):
 FEATURES = ('spectrogram', 'filterbank', 'mfcc', 'plp', 'rastaplp')
 
 
-def benchmark(config='full', seed=0, features=('mfcc',), workdir=None, *,
-              device, log=get_logger('abx-bench', 'warning')):
+def benchmark(config='full', seed=0, features=('mfcc',), workdir=None,
+              njobs=1, *, device, log=get_logger('abx-bench', 'warning')):
     """Run the standing ABX benchmark at a named configuration on
-    ``device``.
+    ``device`` (``njobs`` bounds the VTLN training's audio decode).
 
     Returns a dict: ``errors[task][feature][condition]`` in [0, 1] for task in
     ('across', 'within'), feature from ``features`` and condition in
@@ -311,7 +312,7 @@ def benchmark(config='full', seed=0, features=('mfcc',), workdir=None, *,
     try:
         warps = train_warps(
             workdir, phones, profiles, params['train_tokens'], seed,
-            device=device, log=log)
+            njobs=njobs, device=device, log=log)
     finally:
         if created_workdir:
             shutil.rmtree(workdir, ignore_errors=True)

@@ -59,6 +59,17 @@ def _nvcc():
     return os.path.join(home, 'bin', 'nvcc')
 
 
+def library_path(source=_SOURCE):
+    """``_build/lib<name>-<digest>.so``: where :func:`build` puts the
+    library of a CUDA source of ``csrc/`` (the digest covers the source
+    and the nvcc flags)."""
+    with open(source, 'rb') as fp:
+        digest = hashlib.sha1(
+            fp.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    name = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(_BUILD_DIR, f'lib{name}-{digest}.so')
+
+
 def build(source=_SOURCE, fresh=False):
     """Compile a CUDA source of ``csrc/`` (``csrc/viterbi.cu`` by
     default) into ``_build/lib<name>-<digest>.so``, once per source
@@ -68,11 +79,7 @@ def build(source=_SOURCE, fresh=False):
     up-to-date library was already there. Raises RuntimeError with
     nvcc's output when the build fails.
     """
-    with open(source, 'rb') as fp:
-        digest = hashlib.sha1(
-            fp.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    name = os.path.splitext(os.path.basename(source))[0]
-    target = os.path.join(_BUILD_DIR, f'lib{name}-{digest}.so')
+    target = library_path(source)
     if os.path.isfile(target) and not fresh:
         return target, ''
     os.makedirs(_BUILD_DIR, exist_ok=True)

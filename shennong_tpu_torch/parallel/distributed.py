@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from shennong_tpu_torch.logger import get_logger, null_logger
+from shennong_tpu_torch.parallel.profiler import counters
 
 #: collectives run since the last :func:`reset_collectives`, and their
 #: host seconds
@@ -215,8 +216,8 @@ def _vtln_refusal(vtln, utterances):
     return None
 
 
-def extract_features(configuration, utterances, *, device, generator=None,
-                     log=get_logger('distributed', 'info')):
+def extract_features(configuration, utterances, njobs=1, *, device,
+                     generator=None, log=get_logger('distributed', 'info')):
     """Multi-process :func:`shennong_tpu_torch.pipeline.extract_features`.
 
     Every process receives the whole collection, takes its round-robin
@@ -231,7 +232,8 @@ def extract_features(configuration, utterances, *, device, generator=None,
     The warps of a ``vtln`` section train across the processes
     (:func:`train_vtln`) when it takes the configuration, else on the
     whole collection in every process: the same warps everywhere, the
-    work repeated.
+    work repeated. ``njobs`` bounds the audio decode, as in the single
+    process.
     """
     from shennong_tpu_torch import pipeline as pipe
     from shennong_tpu_torch.features_collection import FeaturesCollection
@@ -254,23 +256,24 @@ def extract_features(configuration, utterances, *, device, generator=None,
             cache = SignalCache(device=device)
             vtln._signal_cache = cache
             manager.warps = train_vtln(
-                vtln, Utterances(utterances), device=device,
+                vtln, Utterances(utterances), njobs=njobs, device=device,
                 generator=generator, log=log)
         else:
             log.info('VTLN training not distributable: training on the '
                      'whole collection in every process')
             manager.warps = vtln.process(
-                Utterances(utterances), device=device,
+                Utterances(utterances), njobs=njobs, device=device,
                 generator=_shared_generator(generator, device))
 
     triplets = []
     pipe._pass_one(manager, list(shard), device, generator, log, cache,
-                   triplets.extend)
+                   triplets.extend, njobs)
     if 'cmvn' in config:
         by_speaker = config['cmvn']['by_speaker']
         manager.cmvn_stats = reduce_cmvn_stats(manager.cmvn_stats, sorted({
             utt.speaker if by_speaker else utt.name for utt in utterances}))
-    results = pipe._pass_two(manager, triplets, log)
+    with counters.timed('pass2_s'):
+        results = pipe._pass_two(manager, triplets, log)
     return FeaturesCollection({utt.name: results[utt.name] for utt in shard})
 
 
@@ -286,7 +289,7 @@ def _shared_generator(generator, device):
     return shared
 
 
-def train_ubm(ubm, utterances, *, device, generator=None,
+def train_ubm(ubm, utterances, njobs=1, *, device, generator=None,
               log=get_logger('distributed', 'info')):
     """Multi-process :meth:`DiagUbmProcessor.process` (the fused
     front-end).
@@ -308,12 +311,14 @@ def train_ubm(ubm, utterances, *, device, generator=None,
       and every process applies the same update.
 
     Sets and returns ``ubm.gmm``, the same bits on every process.
+    ``njobs`` bounds the audio decode, as in the single process.
     """
     return _train_ubm(ubm, list(utterances), device, generator, None,
-                      log)[0]
+                      njobs, log)[0]
 
 
-def _train_ubm(ubm, utterances, device, generator, signal_cache, log):
+def _train_ubm(ubm, utterances, device, generator, signal_cache, njobs,
+               log):
     """:func:`train_ubm`, the front-end's uploads in ``signal_cache``
     (or None); returns (gmm, the shard's front-end as
     :func:`shennong_tpu_torch.processor.ubm.stream_frontend` returns it,
@@ -331,8 +336,8 @@ def _train_ubm(ubm, utterances, device, generator, signal_cache, log):
     log.info('Training UBM across %d processes', _process_count())
     with torch.profiler.record_function('ubm.frontend'):
         front = stream_frontend(
-            ubm.features, ubm.vad, ubm.subsample, shard, device=device,
-            generator=generator, signal_cache=signal_cache)
+            ubm.features, ubm.vad, ubm.subsample, shard, njobs=njobs,
+            device=device, generator=generator, signal_cache=signal_cache)
     flat, w_init, w_em = (t.to(GMM_DTYPE) for t in front[:3])
     layout = front[4]
 
@@ -444,7 +449,7 @@ def estimate_vtln(vtln, ubm, feats_collection, posteriors, utt2speak, *,
     return transforms, warps
 
 
-def train_vtln(vtln, utterances, group_by='utterance', *, device,
+def train_vtln(vtln, utterances, group_by='utterance', njobs=1, *, device,
                generator=None, log=get_logger('distributed', 'info')):
     """Multi-process :meth:`VtlnProcessor.process`: the whole LVTLN
     training of its device body, on ``device``, with every corpus
@@ -463,7 +468,7 @@ def train_vtln(vtln, utterances, group_by='utterance', *, device,
     the fused MFCC front-end and a UBM of fixed size
     (``remove_low_count_gaussians`` False). A ``_signal_cache``
     attribute of ``vtln``, as the pipeline sets it, caches this
-    process's uploads.
+    process's uploads. ``njobs`` bounds the audio decode.
     """
     from shennong_tpu_torch import pipeline
     from shennong_tpu_torch.ops import gmm as gmm_ops
@@ -501,7 +506,7 @@ def train_vtln(vtln, utterances, group_by='utterance', *, device,
     if signal_cache is None:
         signal_cache = SignalCache(device=device)
     _, front = _train_ubm(ubm, everything, device, generator, signal_cache,
-                          log)
+                          njobs, log)
 
     vtln.log.info('Initializing base LVTLN transforms')
     num_classes = int(1.5 + (vtln.max_warp - vtln.min_warp) / vtln.warp_step)
@@ -516,8 +521,9 @@ def train_vtln(vtln, utterances, group_by='utterance', *, device,
             and int(vtln.subsample) == int(ubm.subsample)):
         with torch.profiler.record_function('ubm.frontend'):
             front = stream_frontend(
-                vtln.features, ubm.vad, vtln.subsample, shard, device=device,
-                generator=generator, signal_cache=signal_cache)
+                vtln.features, ubm.vad, vtln.subsample, shard, njobs=njobs,
+                device=device, generator=generator,
+                signal_cache=signal_cache)
     flat, w_em = front[0].to(GMM_DTYPE), front[2].to(GMM_DTYPE)
     layout = front[4]
 
@@ -531,7 +537,8 @@ def train_vtln(vtln, utterances, group_by='utterance', *, device,
                      if k != 'sliding_window_cmvn'}
     moments = pipeline.accumulate_warp_mapping_stats(
         base_features, shard, class_warps, keep, null_logger(),
-        device=device, generator=generator, signal_cache=signal_cache)
+        njobs=njobs, device=device, generator=generator,
+        signal_cache=signal_cache)
     # a shard whose frames the VAD rejects contributes zero moments
     local = (merge_moments(moments) if sum(float(m[0]) for m in moments) > 0
              else tuple(np.zeros(np.shape(m)) for m in moments[0]))

@@ -24,7 +24,12 @@ and blocking on its outputs, ``batch.chunked`` the whole chunked
 extraction of one hour-scale utterance, ``vtln.moments`` the warp-class
 moments of one batch; they are profiler annotations
 (:func:`torch.profiler.record_function`), which cost nothing
-measurable when no profiler runs.
+measurable when no profiler runs. The fused pass 1 and
+``BatchExecutor.process_all`` also add to the counters of
+:mod:`shennong_tpu_torch.parallel.profiler` (``dispatch_s``,
+``dispatches``, ``bytes_up``, ``fetch_s``, ``bytes_down``). Every
+consumer hands a batch's host buffer back to the stream's pool once the
+copy that reads it has finished.
 """
 
 import collections
@@ -42,6 +47,7 @@ from shennong_tpu_torch.ops import spectral
 from shennong_tpu_torch.ops.framing import num_frames
 from shennong_tpu_torch.parallel import stream
 from shennong_tpu_torch.parallel.fused import pass_one_program
+from shennong_tpu_torch.parallel.profiler import counters
 from shennong_tpu_torch.processor.base import fresh_generator
 
 
@@ -124,8 +130,9 @@ class FusedPipelineExecutor:
             return self.generator
         return fresh_generator(self.device)
 
-    def run(self, utterances, on_utterance=None):
-        """Extract pass 1 for every utterance.
+    def run(self, utterances, njobs=4, on_utterance=None):
+        """Extract pass 1 for every utterance, decoding the audio that
+        the native loader does not read on ``njobs`` threads.
 
         Returns ``(features, vads, pitches)``: a FeaturesCollection, a
         dict of per-frame uint8 VAD decisions (or None) and a
@@ -156,7 +163,10 @@ class FusedPipelineExecutor:
             FeaturesCollection() if self.pitch_proc is not None else None)
 
         def dispatch(names, signals, nsamples):
-            with torch.profiler.record_function('pass1.dispatch'):
+            with torch.profiler.record_function('pass1.dispatch'), \
+                    counters.timed('dispatch_s'):
+                stream.count_upload(signals, nsamples)
+                counters.add('dispatches')
                 return _dispatch(names, signals, nsamples)
 
         def _dispatch(names, signals, nsamples):
@@ -191,13 +201,18 @@ class FusedPipelineExecutor:
             return names, nsamples, host, done, signals
 
         def drain(names, nsamples, out, done, signals):
-            if done is not None:
-                with torch.profiler.record_function('pass1.wait'):
-                    done.synchronize()
-            del signals  # its upload finished with the program
-            feats = out['feats'].numpy()
-            vad = out['vad'].numpy() if 'vad' in out else None
-            pitch = out['pitch'].numpy() if 'pitch' in out else None
+            with counters.timed('fetch_s'):
+                if done is not None:
+                    with torch.profiler.record_function('pass1.wait'):
+                        done.synchronize()
+                host = {key: value.numpy() for key, value in out.items()}
+            counters.add('bytes_down', sum(
+                value.nbytes for value in host.values()))
+            # the event follows the input upload too
+            stream.recycle(signals)
+            feats = host['feats']
+            vad = host.get('vad')
+            pitch = host.get('pitch')
             raw_props = (
                 _RawProps(self.pitch_proc.get_properties())
                 if pitch is not None else None)
@@ -232,7 +247,7 @@ class FusedPipelineExecutor:
         inflight = collections.deque()
         for names, signals, nsamples, _ in stream.stream_source(
                 self.signal_cache, utterances, self.batch_size,
-                pin_memory=cuda, depth=self.depth):
+                pin_memory=cuda, njobs=njobs, depth=self.depth):
             inflight.append(dispatch(names, signals, nsamples))
             if len(inflight) > self.depth:
                 drain(*inflight.popleft())
@@ -329,12 +344,14 @@ class BatchExecutor:
         self.device = torch.device(device)
         self.generator = generator
 
-    def process_all(self, utterances, vtln_warp=None, signal_cache=None):
+    def process_all(self, utterances, vtln_warp=None, njobs=4,
+                    signal_cache=None):
         """Extract features for every utterance.
 
         ``vtln_warp`` optionally maps utterance names to warp factors
-        (mel-based processors only). ``signal_cache`` optionally
-        replays already-uploaded signal batches
+        (mel-based processors only). ``njobs`` bounds the decode of the
+        audio that the native loader does not read. ``signal_cache``
+        optionally replays already-uploaded signal batches
         (:class:`shennong_tpu_torch.parallel.stream.SignalCache`).
         Utterances of more than the processor's ``AUTO_CHUNK_FRAMES``
         frames go through its ``process_chunked``. Returns a
@@ -380,13 +397,20 @@ class BatchExecutor:
 
         source = stream.stream_source(
             signal_cache, utterances, self.batch_size,
-            pin_memory=self.device.type == 'cuda')
+            pin_memory=self.device.type == 'cuda', njobs=njobs)
         for names, signals, nsamples, _ in source:
-            with torch.profiler.record_function('batch.dispatch'):
+            with torch.profiler.record_function('batch.dispatch'), \
+                    counters.timed('dispatch_s'):
+                stream.count_upload(signals, nsamples)
+                counters.add('dispatches')
                 out = self._run_batch(
                     names, signals, nsamples, vtln_warp, **random)
-            with torch.profiler.record_function('batch.wait'):
+            with torch.profiler.record_function('batch.wait'), \
+                    counters.timed('fetch_s'):
                 feats = out.cpu().numpy()
+            counters.add('bytes_down', feats.nbytes)
+            # the fetch ordered after the upload on the stream
+            stream.recycle(signals)
             for row, utt_name in enumerate(names):
                 nframes = proc.output_frames(int(nsamples[row]))
                 data = feats[row, :nframes]
@@ -409,14 +433,16 @@ class BatchExecutor:
             return self.generator
         return fresh_generator(self.device)
 
-    def process_all_classes(self, utterances, class_warps):
+    def process_all_classes(self, utterances, class_warps, njobs=4):
         """MFCCs of every utterance at every VTLN warp class.
 
         The framing and the FFT run once per batch and only the mel
         bank fans out over the ``class_warps``
         (:func:`shennong_tpu_torch.ops.spectral.mfcc_multi_warp_batch`);
         utterances past ``AUTO_CHUNK_FRAMES`` take chunked extraction,
-        once per class. Returns one FeaturesCollection per class.
+        once per class. ``njobs`` bounds the decode of the audio that
+        the native loader does not read. Returns one FeaturesCollection
+        per class.
         """
         proc = self.processor
         if proc.name != 'mfcc':
@@ -453,7 +479,7 @@ class BatchExecutor:
         frame_opts = proc.frame_options()
         for names, signals, nsamples, _ in stream.stream_batches(
                 utterances, self.batch_size,
-                pin_memory=self.device.type == 'cuda'):
+                pin_memory=self.device.type == 'cuda', njobs=njobs):
             with torch.profiler.record_function('batch.dispatch'):
                 feats = spectral.mfcc_multi_warp_batch(
                     signals.to(self.device, non_blocking=True).to(
@@ -464,6 +490,7 @@ class BatchExecutor:
                     generator=generator)
             with torch.profiler.record_function('batch.wait'):
                 feats = feats.cpu().numpy()
+            stream.recycle(signals)
             for row, utt_name in enumerate(names):
                 nframes = num_frames(int(nsamples[row]), frame_opts)
                 for c, warp in enumerate(class_warps):
@@ -475,7 +502,7 @@ class BatchExecutor:
 
     def accumulate_lvtln_stats(self, utterances, class_warps, keep,
                                delta_order=None, delta_window=None,
-                               signal_cache=None):
+                               njobs=4, signal_cache=None):
         """Least-squares mapping statistics of every VTLN warp class.
 
         ``keep`` maps utterance names to per-frame float weights (the
@@ -487,6 +514,10 @@ class BatchExecutor:
 
         Returns the list of per-batch moment tuples (numpy float32) for
         :func:`shennong_tpu_torch.ops.fmllr.solve_mapping_from_moments`.
+        ``njobs`` bounds the decode of the audio that the native loader
+        does not read; each batch's host buffer goes back to the pool
+        once an event after its upload has completed (no wait in the
+        loop).
         """
         from shennong_tpu_torch.ops import fmllr as fmllr_ops
 
@@ -518,8 +549,9 @@ class BatchExecutor:
 
         source = stream.stream_source(
             signal_cache, utterances, batch_rows,
-            pin_memory=self.device.type == 'cuda')
+            pin_memory=self.device.type == 'cuda', njobs=njobs)
         parts = []
+        uploads = stream.PendingUploads(self.device)
         for names, signals, nsamples, _ in source:
             with torch.profiler.record_function('vtln.moments'):
                 nframes_max = num_frames(signals.shape[1], frame_opts)
@@ -538,10 +570,13 @@ class BatchExecutor:
                     mel_weights, torch.from_numpy(weights).to(self.device),
                     proc.options(), nframes_max, delta_order=delta_order,
                     delta_window=delta_window, generator=generator))
+            uploads.add(signals)
+            uploads.release()
         # one fetch for every batch's moments
         shapes = [m.shape for m in parts[0]]
         packed = torch.cat(
             [m.reshape(-1) for batch in parts for m in batch]).cpu().numpy()
+        uploads.drain()
         moments, cursor = [], 0
         for _ in parts:
             batch = []

@@ -20,8 +20,10 @@ from the sample rates and the frame counts, as the reference does:
   padded utterance batch on the device
   (:class:`shennong_tpu_torch.parallel.executor.FusedPipelineExecutor`):
   the features, the energy VAD and the post-processed pitch. Pass 2
-  runs on the host as soon as a CMVN group (a speaker, or one
-  utterance) has landed, and a pass-2 failure stops pass 1 at once;
+  of a CMVN group (a speaker, or one utterance) runs on the host
+  thread ``pass-two`` as soon as the group has landed, while later
+  batches are in flight, and a pass-2 failure stops pass 1 at the next
+  drained utterance;
 - **stage-wise** (one sample rate, an utterance past a processor's
   ``AUTO_CHUNK_FRAMES``, or CREPE pitch): one sweep of the corpus per
   stage through
@@ -35,25 +37,33 @@ from the sample rates and the frame counts, as the reference does:
   rate.
 
 Pass 2 (CMVN statistics and their application, deltas, the pitch
-concatenation) is the same on every path.
+concatenation) is the same on every path, and adds its thread seconds
+to ``counters['pass2_s']``
+(:mod:`shennong_tpu_torch.parallel.profiler`). :func:`warmup` pays a
+cold process's start-up costs before the first real extraction.
 """
 
+import contextlib
 import os
+import queue
 import textwrap
+import threading
 
 import numpy as np
 import torch
 
 from shennong_tpu_torch.features import Features
 from shennong_tpu_torch.features_collection import FeaturesCollection
-from shennong_tpu_torch.logger import get_logger
+from shennong_tpu_torch.logger import get_logger, null_logger
 from shennong_tpu_torch.ops.postops import (
     accumulate_cmvn_stats, compute_deltas_host)
 from shennong_tpu_torch.parallel.executor import (
     BatchExecutor, FusedPipelineExecutor)
+from shennong_tpu_torch.parallel.profiler import counters
 from shennong_tpu_torch.parallel.stream import SignalCache
 from shennong_tpu_torch.pipeline_manager import PipelineManager
 from shennong_tpu_torch.processor.base import fresh_generator
+from shennong_tpu_torch.utils import get_njobs
 
 
 def valid_features():
@@ -148,8 +158,9 @@ def get_default_config(
     return config
 
 
-def extract_features(configuration, utterances, warps=None, *, device,
-                     generator=None, log=get_logger('pipeline', 'warning')):
+def extract_features(configuration, utterances, warps=None, njobs=1, *,
+                     device, generator=None,
+                     log=get_logger('pipeline', 'warning')):
     """Run a features extraction pipeline over ``utterances``.
 
     Parameters
@@ -162,6 +173,10 @@ def extract_features(configuration, utterances, warps=None, *, device,
     warps : dict, optional
         Precomputed VTLN warps indexed by speaker or by utterance (not
         with spectrogram features, nor with a 'vtln' config section).
+    njobs : int, optional
+        Host decode concurrency: the threads that load the audio the
+        native PCM16 loader does not read (validated by
+        :func:`shennong_tpu_torch.utils.get_njobs`; default 1).
     device : str or torch.device
         Where pass 1, and the VTLN training of a 'vtln' section, run
         ('cuda', 'cuda:1', 'cpu', ...).
@@ -176,6 +191,7 @@ def extract_features(configuration, utterances, warps=None, *, device,
     -------
     features : :class:`~shennong_tpu.features_collection.FeaturesCollection`
     """
+    njobs = get_njobs(njobs, log=log)
     config = init_config(configuration, log=log)
     log.info(
         'detected format for utterances index is: %s',
@@ -192,28 +208,72 @@ def extract_features(configuration, utterances, warps=None, *, device,
     elif 'vtln' in config:
         cache = SignalCache(device=device)
         manager.warps = _train_warps(
-            manager, utterances, device, generator, cache)
+            manager, utterances, device, generator, cache, njobs)
     utterances = list(utterances)
     results = {}
-
-    def pass_two(triplets):
-        results.update(_pass_two(manager, triplets, log))
-
-    _pass_one(manager, utterances, device, generator, log, cache, pass_two)
+    with _pass_two_worker(manager, log, results) as pass_two:
+        _pass_one(manager, utterances, device, generator, log, cache,
+                  pass_two, njobs)
     return FeaturesCollection(
         {utt.name: results[utt.name] for utt in utterances})
 
 
-def _pass_one(manager, utterances, device, generator, log, cache, on_group):
+@contextlib.contextmanager
+def _pass_two_worker(manager, log, results):
+    """A thread named ``pass-two`` that runs :func:`_pass_two` on the
+    groups handed to the yielded ``submit(triplets)``, under
+    ``counters['pass2_s']``, into the dict ``results``, while the
+    caller goes on with pass 1.
+
+    ``submit`` raises a failure of the worker, so pass 1 stops at its
+    next call (the fused path calls it for every drained utterance);
+    the worker is joined on every exit, and its failure raised.
+    """
+    work = queue.SimpleQueue()
+    failure = []
+
+    def worker():
+        while True:
+            triplets = work.get()
+            if triplets is None:
+                return
+            try:
+                with counters.timed('pass2_s'):
+                    results.update(_pass_two(manager, triplets, log))
+            except BaseException as error:  # raised on the caller's thread
+                failure.append(error)
+                return
+
+    def submit(triplets):
+        if failure:
+            raise failure[0]
+        if triplets:
+            work.put(triplets)
+
+    thread = threading.Thread(target=worker, name='pass-two', daemon=True)
+    thread.start()
+    try:
+        yield submit
+    finally:
+        work.put(None)
+        thread.join()
+    if failure:
+        raise failure[0]
+
+
+def _pass_one(manager, utterances, device, generator, log, cache, on_group,
+              njobs):
     """Pass 1 over ``utterances`` by the path chosen up front, their
     CMVN statistics accumulated in ``manager.cmvn_stats``.
 
     ``on_group(triplets)`` takes the (utterance, features, pitch-or-None)
-    triplets of complete CMVN groups: on the fused path each group as
-    soon as it has landed, its statistics accumulated (pass 2 then
-    overlaps pass 1, and a failure in ``on_group`` stops pass 1 at
-    once); on the other paths every utterance in one call. ``cache``
-    replays the signals VTLN training uploaded, or is None.
+    triplets of complete CMVN groups. On the fused path it is called
+    after every drained utterance, with the triplets of the group that
+    utterance completed, its statistics accumulated, or with an empty
+    list: pass 2 can overlap pass 1, and a failure raised by
+    ``on_group`` stops pass 1 at once. On the other paths it is called
+    once with every utterance. ``cache`` replays the signals VTLN
+    training uploaded, or is None; ``njobs`` bounds the audio decode.
     """
     rates = set(
         meta.sample_rate for meta in manager.audio_metadata.values())
@@ -225,19 +285,21 @@ def _pass_one(manager, utterances, device, generator, log, cache, on_group):
             for utt in utterances])
     elif _fits_fused(manager, utterances):
         _fused_pass_one(
-            manager, utterances, device, generator, log, cache, on_group)
+            manager, utterances, device, generator, log, cache, on_group,
+            njobs)
     else:
         on_group(_stagewise_pass_one(
-            manager, utterances, device, generator, log, cache))
+            manager, utterances, device, generator, log, cache, njobs))
 
 
-def _train_warps(manager, utterances, device, generator, cache):
+def _train_warps(manager, utterances, device, generator, cache, njobs):
     """The warps of the config's ``vtln`` section, by utterance,
     trained on ``device`` over the signal cache ``cache``."""
     vtln = manager.make('vtln')
     vtln._signal_cache = cache
     try:
-        return vtln.process(utterances, device=device, generator=generator)
+        return vtln.process(utterances, njobs=njobs, device=device,
+                            generator=generator)
     finally:
         vtln.__dict__.pop('_signal_cache', None)
 
@@ -269,13 +331,14 @@ def _with_deltas(manager, collection):
         for name, out in zip(names, outputs)})
 
 
-def extract_features_warp(configuration, utterances, warp, log, *, device,
-                          generator=None):
+def extract_features_warp(configuration, utterances, warp, log, njobs=1, *,
+                          device, generator=None):
     """Features (and their deltas) of every utterance at one global
     VTLN warp, with no CMVN: the per-warp feature sets of VTLN
     training. One sample rate runs through
     :class:`~shennong_tpu_torch.parallel.executor.BatchExecutor`, several
-    utterance by utterance."""
+    utterance by utterance. ``njobs`` bounds the audio decode."""
+    njobs = get_njobs(njobs, log=log)
     manager, rates, utterances = _warp_classes_manager(
         configuration, utterances, log)
     if len(rates) == 1:
@@ -283,7 +346,8 @@ def extract_features_warp(configuration, utterances, warp, log, *, device,
         features = BatchExecutor(
             proc, device=device, generator=generator).process_all(
                 utterances,
-                vtln_warp={utt.name: float(warp) for utt in utterances})
+                vtln_warp={utt.name: float(warp) for utt in utterances},
+                njobs=njobs)
         return _with_deltas(manager, features)
 
     features = FeaturesCollection()
@@ -296,38 +360,40 @@ def extract_features_warp(configuration, utterances, warp, log, *, device,
 
 
 def extract_features_warp_classes(configuration, utterances, class_warps,
-                                  log, *, device, generator=None):
+                                  log, njobs=1, *, device, generator=None):
     """MFCC features (and their deltas) of every utterance at every
     VTLN warp class, one FeaturesCollection per class.
 
     A single-rate MFCC configuration frames and transforms each batch
     once and fans only the mel bank out over the classes
     (:meth:`BatchExecutor.process_all_classes`); other configurations
-    take :func:`extract_features_warp` once per class.
+    take :func:`extract_features_warp` once per class. ``njobs`` bounds
+    the audio decode.
     """
+    njobs = get_njobs(njobs, log=log)
     manager, rates, utterances = _warp_classes_manager(
         configuration, utterances, log)
     if manager.features == 'mfcc' and len(rates) == 1:
         proc = manager.make('features', utterances[0])
         collections = BatchExecutor(
             proc, device=device, generator=generator).process_all_classes(
-                utterances, [float(w) for w in class_warps])
+                utterances, [float(w) for w in class_warps], njobs=njobs)
         return [_with_deltas(manager, c) for c in collections]
     return [
         extract_features_warp(
-            configuration, utterances, warp, log, device=device,
-            generator=generator)
+            configuration, utterances, warp, log, njobs=njobs,
+            device=device, generator=generator)
         for warp in class_warps]
 
 
 def accumulate_warp_mapping_stats(configuration, utterances, class_warps,
-                                  keep, log, *, device, generator=None,
-                                  signal_cache=None):
+                                  keep, log, njobs=1, *, device,
+                                  generator=None, signal_cache=None):
     """The least-squares moments of the LVTLN base-transform training,
     reduced on ``device`` (:meth:`BatchExecutor.accumulate_lvtln_stats`):
     the warped features of the classes never reach the host. ``keep``
     maps utterance names to per-frame selection weights (VAD and
-    subsampling).
+    subsampling); ``njobs`` bounds the audio decode.
 
     Returns the per-batch moments for
     :func:`shennong_tpu_torch.ops.fmllr.solve_mapping_from_moments`, or
@@ -335,6 +401,7 @@ def accumulate_warp_mapping_stats(configuration, utterances, class_warps,
     utterance past ``AUTO_CHUNK_FRAMES`` (the caller then materializes
     the warped collections).
     """
+    njobs = get_njobs(njobs, log=log)
     manager, rates, utterances = _warp_classes_manager(
         configuration, utterances, log)
     if manager.features != 'mfcc' or len(rates) != 1:
@@ -354,7 +421,7 @@ def accumulate_warp_mapping_stats(configuration, utterances, class_warps,
         proc, device=device, generator=generator).accumulate_lvtln_stats(
             utterances, [float(w) for w in class_warps], keep,
             delta_order=delta_order, delta_window=delta_window,
-            signal_cache=signal_cache)
+            njobs=njobs, signal_cache=signal_cache)
 
 
 def _process_one(utterance, manager, log, warp, *, device, generator):
@@ -432,7 +499,7 @@ def _with_audio_properties(manager, utterance, features):
 
 
 def _fused_pass_one(manager, utterances, device, generator, log, cache,
-                    on_group):
+                    on_group, njobs):
     """The fused pass 1, handing each CMVN group's triplets to
     ``on_group`` as soon as the group has landed (see
     :func:`_pass_one`)."""
@@ -471,21 +538,25 @@ def _fused_pass_one(manager, utterances, device, generator, log, cache,
 
         key = group_of[name]
         pending[key] -= 1
+        complete = []
         if pending[key] == 0:
-            # the group is complete: it goes on now, and a failure
-            # propagates through the executor and stops pass 1
+            # the statistics add up here, on this thread, in utterance
+            # order: the same bits as one sweep
             if with_cmvn:
                 for member in groups[key]:
                     manager.cmvn_stats[key] += stats.pop(member)
-            on_group([landed.pop(member) for member in groups[key]])
+            complete = [landed.pop(member) for member in groups[key]]
+        # after every utterance: a failure it raises propagates through
+        # the executor and stops pass 1
+        on_group(complete)
 
     log.debug('fused pass 1, handing on %d groups as they land',
               len(groups))
-    executor.run(utterances, on_utterance=on_utterance)
+    executor.run(utterances, njobs=njobs, on_utterance=on_utterance)
 
 
 def _stagewise_pass_one(manager, utterances, device, generator, log,
-                        cache):
+                        cache, njobs):
     """Pass 1 as one :class:`BatchExecutor` sweep per stage, the
     hour-scale utterances in chunks. Returns the (utterance, features,
     pitch-or-None) triplets, the CMVN statistics accumulated."""
@@ -505,7 +576,7 @@ def _stagewise_pass_one(manager, utterances, device, generator, log,
         generator=generator).process_all(
             utterances,
             vtln_warp=dict(manager.warps) if manager.warps else None,
-            signal_cache=cache)
+            njobs=njobs, signal_cache=cache)
 
     vads = None
     if with_vad:
@@ -513,7 +584,7 @@ def _stagewise_pass_one(manager, utterances, device, generator, log,
         energies = BatchExecutor(
             manager.make('energy', first), device=device,
             generator=generator).process_all(
-                utterances, signal_cache=cache)
+                utterances, njobs=njobs, signal_cache=cache)
         vads = {
             name: vad.data.reshape(-1) for name, vad in
             manager.make('vad').process_all(
@@ -525,7 +596,7 @@ def _stagewise_pass_one(manager, utterances, device, generator, log,
         # CREPE batches by its own frame grid and loads its own audio;
         # its post-processing decides the voicing per utterance
         raw = manager.make('pitch', first).process_all(
-            utterances, device=device)
+            utterances, njobs=njobs, device=device)
         post = manager.make('pitch_post')
         with torch.profiler.record_function('crepe.post'):
             pitches = {
@@ -536,7 +607,7 @@ def _stagewise_pass_one(manager, utterances, device, generator, log,
         log.debug('stage-wise pass 1: pitch')
         raw = BatchExecutor(
             manager.make('pitch', first), device=device).process_all(
-                utterances, signal_cache=cache)
+                utterances, njobs=njobs, signal_cache=cache)
         pitches = manager.make('pitch_post').process_collection(
             raw, device=device, generator=generator)
 
@@ -797,3 +868,92 @@ def _config_to_yaml(config, comments=True):
         prev_offset = offset
 
     return '\n'.join(commented) + '\n'
+
+
+def warmup(configuration, utterances, *, device, njobs=1,
+           log=get_logger('warmup', 'info')):
+    """Pay a cold process's start-up costs before the first extraction.
+
+    A new process pays, on its first batches, what no later batch pays
+    again: on a card, the nvcc build of the kernels the configuration
+    needs when ``_build/`` lacks them (a build failure raises), the
+    CUDA context, cuFFT plans for each signal bucket, cuBLAS handles,
+    the caching allocator's segments and the pinned host blocks. This
+    entry point derives the batch geometries ``extract_features`` would
+    run for ``utterances`` (rows x signal bucket, from the audio
+    headers, no decode) and runs :func:`extract_features` once on
+    ``device`` over a small synthetic corpus of those geometries.
+
+    Call it at server start-up, before traffic arrives, so that the
+    first real request runs at warm speed. A ``vtln`` section is warmed
+    as the warped extraction path (unit warps): the training warms on
+    first use. No compilation cache is involved.
+
+    Returns a dict: the distinct ``geometries`` ([rows, samples]
+    pairs), the ``programs`` count and the warm-up ``seconds``.
+    """
+    import shutil
+    import tempfile
+    import time
+
+    import scipy.io.wavfile
+
+    from shennong_tpu_torch.audio import Audio
+    from shennong_tpu_torch.ops.framing import bucket_size
+    from shennong_tpu_torch.parallel.stream import _scan_count, plan_batches
+    from shennong_tpu_torch.utterances import Utterances
+
+    config = init_config(configuration, log=null_logger())
+    utterances = list(utterances if isinstance(utterances, Utterances)
+                      else Utterances(utterances))
+    sample_rate = Audio.scan(utterances[0].audio_file).sample_rate
+
+    # the geometries extract_features would run (executor batch size
+    # 64, length-sorted grouping, geometric signal buckets)
+    geometries = sorted({
+        (len(chunk), bucket_size(max(_scan_count(u) for u in chunk)))
+        for chunk in plan_batches(utterances, 64)})
+    log.info(
+        'warming %d pipeline geometr%s for %d utterances',
+        len(geometries), 'y' if len(geometries) == 1 else 'ies',
+        len(utterances))
+
+    # a synthetic corpus of those geometries: equal-length groups sort
+    # adjacent, so the planner makes each (rows, bucket) batch again;
+    # speech-like noise keeps every stage live (the VAD finds voiced
+    # frames, the pitch locks)
+    with_warps = 'vtln' in config
+    if with_warps:
+        config = {k: v for k, v in config.items() if k != 'vtln'}
+    workdir = tempfile.mkdtemp(prefix='shennong_warmup_')
+    start = time.perf_counter()
+    try:
+        entries = []
+        rng = np.random.RandomState(0)
+        for index, (rows, bucket) in enumerate(geometries):
+            t = np.arange(bucket) / sample_rate
+            signal = (
+                np.sin(2 * np.pi * 120 * t)
+                * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t))
+                + rng.randn(bucket) * 0.05)
+            wav = os.path.join(workdir, f'geom{index}.wav')
+            scipy.io.wavfile.write(
+                wav, int(sample_rate),
+                (signal / np.abs(signal).max() * 12000).astype(np.int16))
+            entries.extend(
+                (f'warm{index}-{row}', wav, f'spk{row % 2}')
+                for row in range(rows))
+        synthetic = Utterances(entries)
+        warps = ({utt.name: 1.0 for utt in synthetic} if with_warps
+                 else None)
+        extract_features(config, synthetic, warps=warps, njobs=njobs,
+                         device=device, log=null_logger())
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    seconds = time.perf_counter() - start
+    log.info('warmup done in %.1fs', seconds)
+    return {
+        'geometries': [list(geom) for geom in geometries],
+        'programs': len(geometries),
+        'seconds': round(seconds, 2)}

@@ -295,11 +295,12 @@ class SlidingWindowCmvnPostProcessor(FeaturesPostProcessor):
             out[0].astype(features.dtype), features.times,
             self.get_properties(features))
 
-    def process_all(self, features_collection, *, device):
+    def process_all(self, features_collection, njobs=None, *, device):
         """Sliding-window normalization of a whole collection on
         ``device``, :data:`BATCH_ROWS` utterances of one dimension per
         padded batch. Returns a FeaturesCollection keyed like the
-        input."""
+        input. ``njobs`` has no effect: it keeps the JAX package's
+        signature, and the features are in memory, nothing is decoded."""
         names = list(features_collection.keys())
         by_dim = {}
         for name in names:

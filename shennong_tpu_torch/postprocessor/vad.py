@@ -119,13 +119,15 @@ class VadPostProcessor(FeaturesPostProcessor):
             vad[0].cpu().numpy().astype(np.uint8)[:, None],
             features.times, properties=self.get_properties(features))
 
-    def process_all(self, features_collection, *, device):
+    def process_all(self, features_collection, njobs=None, *, device):
         """Voicing decisions for a whole collection, on ``device``.
 
         Utterances are grouped into padded masked batches
         (:func:`shennong_tpu_torch.ops.postops.batch_ragged`): one
         device program per batch instead of one per utterance. Returns
-        a FeaturesCollection keyed like the input.
+        a FeaturesCollection keyed like the input. ``njobs`` has no
+        effect: it keeps the JAX package's signature, and the features
+        are in memory, nothing is decoded.
         """
         names = list(features_collection.keys())
         arrays = [features_collection[n].data[:, :1] for n in names]

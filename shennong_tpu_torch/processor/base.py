@@ -22,6 +22,7 @@ from shennong_tpu_torch.features_collection import FeaturesCollection
 from shennong_tpu_torch.ops.framing import (
     FrameOptions, WINDOW_TYPES, num_frames)
 from shennong_tpu_torch.ops.spectral import MelOpts
+from shennong_tpu_torch.utils import get_njobs
 
 
 def fresh_generator(device):
@@ -58,15 +59,19 @@ class FeaturesProcessor(BaseProcessor, metaclass=abc.ABCMeta):
     def process(self, signal, *, device):
         """Compute features from an input signal on ``device``."""
 
-    def process_all(self, utterances, *, device, generator=None, **kwargs):
+    def process_all(self, utterances, njobs=None, *, device, generator=None,
+                    **kwargs):
         """Compute features for a whole utterance collection, one
         utterance at a time, on ``device``.
 
         ``kwargs`` values must be dicts indexed by utterance name and
         are forwarded per utterance to :func:`process`, with
-        ``generator`` when one is given. Returns a
-        :class:`FeaturesCollection` keyed like ``utterances``.
+        ``generator`` when one is given. ``njobs`` is validated by
+        :func:`get_njobs` and has no other effect: this loop loads one
+        utterance at a time. Returns a :class:`FeaturesCollection`
+        keyed like ``utterances``.
         """
+        njobs = get_njobs(njobs, log=self.log)
         _check_per_utterance(utterances, kwargs)
         random = {} if generator is None else {'generator': generator}
         collection = FeaturesCollection()
@@ -224,7 +229,8 @@ class FramesProcessor(FeaturesProcessor, metaclass=abc.ABCMeta):
     def snip_edges(self, value):
         self._snip_edges = bool(value)
 
-    def process_all(self, utterances, *, device, generator=None, **kwargs):
+    def process_all(self, utterances, njobs=None, *, device, generator=None,
+                    **kwargs):
         """Batched extraction over a whole utterance collection.
 
         Utterances run in padded length-sorted batches through
@@ -232,16 +238,21 @@ class FramesProcessor(FeaturesProcessor, metaclass=abc.ABCMeta):
         ``device``, the hour-scale ones through :func:`process_chunked`.
         ``kwargs`` may hold a ``vtln_warp`` dict (mel-based processors);
         other per-utterance arguments take the per-utterance loop.
-        ``generator`` is the source of the dither, on ``device``.
+        ``njobs`` bounds the decode of the audio that the native loader
+        does not read. ``generator`` is the source of the dither, on
+        ``device``.
         """
+        njobs = get_njobs(njobs, log=self.log)
         _check_per_utterance(utterances, kwargs)
         if set(kwargs) <= {'vtln_warp'}:
             from shennong_tpu_torch.parallel.executor import BatchExecutor
             return BatchExecutor(
                 self, device=device, generator=generator).process_all(
-                    utterances, vtln_warp=kwargs.get('vtln_warp'))
+                    utterances, vtln_warp=kwargs.get('vtln_warp'),
+                    njobs=njobs)
         return super().process_all(
-            utterances, device=device, generator=generator, **kwargs)
+            utterances, njobs=njobs, device=device, generator=generator,
+            **kwargs)
 
     def process_chunked(self, signal, chunk_frames=20000, halo_frames=256,
                         *, device, generator=None, **kwargs):

@@ -272,16 +272,20 @@ class BottleneckProcessor(FeaturesProcessor):
                 params, torch.as_tensor(nn_input, device=device))
         return self._emit(output.cpu().numpy())
 
-    def process_all(self, utterances, *, device, generator=None, **kwargs):
+    def process_all(self, utterances, njobs=None, *, device, generator=None,
+                    **kwargs):
         """Batched extraction over an utterance collection on ``device``:
         the front end per utterance, then utterances sharing a row
         bucket run the network as one batched forward (the stagger
         stacking mixes rows within an utterance, so the batch is a
         leading dimension, never a concatenation). ``generator`` is the
-        source of the dither, every utterance drawing from it in turn."""
+        source of the dither, every utterance drawing from it in turn.
+        ``njobs`` has no effect: the audio is loaded one utterance at a
+        time."""
         if kwargs:
             return super().process_all(
-                utterances, device=device, generator=generator, **kwargs)
+                utterances, njobs=njobs, device=device, generator=generator,
+                **kwargs)
 
         generator = self._generator(device, generator)
         with torch.profiler.record_function('bottleneck.frontend'):

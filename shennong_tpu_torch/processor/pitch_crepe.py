@@ -437,7 +437,7 @@ class CrepePitchProcessor(FeaturesProcessor):
             audio = audio.resample(self.sample_rate)
         return audio
 
-    def process_all(self, utterances, *, device, **kwargs):
+    def process_all(self, utterances, njobs=None, *, device, **kwargs):
         """Batched extraction over an utterance collection on
         ``device``.
 
@@ -448,10 +448,12 @@ class CrepePitchProcessor(FeaturesProcessor):
         decode, a group splits into about four slices so that the CNN
         of later slices runs on the device while the host decodes the
         earlier ones. Utterances past ``CHUNK_FRAMES`` frames take the
-        chunked single-utterance path.
+        chunked single-utterance path. ``njobs`` has no effect: the
+        audio is loaded one utterance at a time.
         """
         if kwargs:
-            return super().process_all(utterances, device=device, **kwargs)
+            return super().process_all(
+                utterances, njobs=njobs, device=device, **kwargs)
 
         hop = int(16000 * self.frame_shift)
         halo = crepe.required_halo(hop)

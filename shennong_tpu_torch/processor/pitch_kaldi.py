@@ -229,15 +229,18 @@ class KaldiPitchProcessor(FeaturesProcessor):
         (pitch frames count on the resampled analysis grid)."""
         return num_pitch_frames(nsamples, self.options())
 
-    def process_all(self, utterances, *, device, **kwargs):
+    def process_all(self, utterances, njobs=None, *, device, **kwargs):
         """Batched pitch extraction over an utterance collection, on
         ``device``, through
         :class:`shennong_tpu_torch.parallel.executor.BatchExecutor`
-        (per-utterance arguments take the per-utterance loop)."""
+        (per-utterance arguments take the per-utterance loop).
+        ``njobs`` has no effect on the batched path, as in the JAX
+        package."""
         if not kwargs:
             from shennong_tpu_torch.parallel.executor import BatchExecutor
             return BatchExecutor(self, device=device).process_all(utterances)
-        return super().process_all(utterances, device=device, **kwargs)
+        return super().process_all(
+            utterances, njobs=njobs, device=device, **kwargs)
 
     def _check_signal(self, signal):
         if signal.nchannels != 1:

@@ -292,14 +292,16 @@ class DiagUbmProcessor(BaseProcessor):
         kaldiio.write_diag_gmm(
             path, self.gmm.weights, self.gmm.means, self.gmm.inv_vars)
 
-    def initialize_gmm(self, feats_collection, *, device):
+    def initialize_gmm(self, feats_collection, njobs=1, *, device):
         """Initialize the GMM from a host features collection and run
         the initial EM with splitting on ``device``.
 
         Means start from randomly sampled frames (reservoir sampling
         bounded by ``num_frames``), variances from the global data
         variance; EM iterations interleave with component splitting up
-        to ``num_gauss``.
+        to ``num_gauss``. ``njobs`` has no effect: it keeps the JAX
+        package's signature, and the features are in memory, nothing
+        is decoded.
         """
         num_gauss_init = int(self.initial_gauss_proportion * self.num_gauss)
         self.log.info('Initializing model')
@@ -644,11 +646,13 @@ class DiagUbmProcessor(BaseProcessor):
                 float(norm[:nrows].sum()) / max(nrows, 1), nrows)
         return posteriors
 
-    def accumulate(self, feats_collection, weights_collection=None, *,
-                   device):
+    def accumulate(self, feats_collection, weights_collection=None,
+                   njobs=1, *, device):
         """Accumulate EM statistics over a features collection, on
         ``device``. Returns (occupancy, mean_acc, var_acc) float64
-        numpy arrays."""
+        numpy arrays. ``njobs`` has no effect: it keeps the JAX
+        package's signature, and the features are in memory, nothing
+        is decoded."""
         if not isinstance(self.gmm, DiagGmm):
             raise TypeError('GMM not initialized')
 
@@ -711,7 +715,7 @@ class DiagUbmProcessor(BaseProcessor):
                 self.gmm.weights, self.gmm.means, self.gmm.inv_vars,
                 int(mixup), perturb_factor, self._rng))
 
-    def _staged_frontend(self, utterances, device, generator):
+    def _staged_frontend(self, utterances, device, generator, njobs):
         """The staged front-end (extraction, VAD, sliding CMVN as
         separate corpus sweeps) for the configurations the fused one
         does not cover; initializes the GMM and returns the
@@ -720,7 +724,7 @@ class DiagUbmProcessor(BaseProcessor):
         cmvn_config = self.features.pop('sliding_window_cmvn', None)
         try:
             raw_features = pipeline.extract_features(
-                self.features, utterances, device=device,
+                self.features, utterances, njobs=njobs, device=device,
                 generator=generator, log=null_logger())
         finally:
             if cmvn_config is not None:
@@ -747,19 +751,21 @@ class DiagUbmProcessor(BaseProcessor):
         return (torch.as_tensor(flat, dtype=GMM_DTYPE, device=device),
                 torch.as_tensor(flat_weights, dtype=GMM_DTYPE, device=device))
 
-    def process(self, utterances, *, device, generator=None):
+    def process(self, utterances, njobs=1, *, device, generator=None):
         """Train the UBM-GMM on the given utterances, on ``device``.
 
         Extracts the configured features (MFCC + delta + sliding CMVN),
         trims them with the energy VAD, initializes the model and runs
-        ``num_iters`` EM iterations. ``generator`` is the source of the
-        MFCC dither, on ``device``.
+        ``num_iters`` EM iterations. ``njobs`` bounds the decode of the
+        audio that the native loader does not read. ``generator`` is
+        the source of the MFCC dither, on ``device``.
         """
+        self.log.info('Training UBM using %s jobs', njobs)
         signal_cache = getattr(self, '_signal_cache', None)
         with torch.profiler.record_function('ubm.frontend'):
             front = stream_frontend(
                 self.features, self.vad, self.subsample, utterances,
-                device=device, generator=generator,
+                njobs=njobs, device=device, generator=generator,
                 signal_cache=signal_cache)
         if front is not None:
             flat, w_init, weights_dev = (
@@ -776,7 +782,7 @@ class DiagUbmProcessor(BaseProcessor):
         else:
             with torch.profiler.record_function('ubm.frontend'):
                 feats_dev, weights_dev = self._staged_frontend(
-                    utterances, device, generator)
+                    utterances, device, generator, njobs)
         self.log.info('Training for %s iterations', self.num_iters)
 
         self._main_em(feats_dev, weights_dev)
@@ -875,7 +881,7 @@ def fused_frontend_supported(features_config, utterances):
 
 
 def stream_frontend(features_config, vad_params, subsample, utterances,
-                    batch_size=64, signal_cache=None, *, device,
+                    njobs=1, batch_size=64, signal_cache=None, *, device,
                     generator=None):
     """Device-resident GMM-training front-end.
 
@@ -885,7 +891,11 @@ def stream_frontend(features_config, vad_params, subsample, utterances,
     trim/subsample frame-selection weights), keeping every feature on
     ``device``. Shared by the UBM and the LVTLN trainers. The batches
     come from ``signal_cache`` when one is given, so the later sweeps
-    of a training run (warp moments, warped extraction) replay them.
+    of a training run (warp moments, warped extraction) replay them;
+    ``njobs`` bounds the decode of the audio that the native loader
+    does not read. Every batch is enqueued before the one host read
+    (the voiced count), and the host buffers go back to the stream's
+    pool after it.
 
     Returns None when the configuration needs the staged path (see
     :func:`fused_frontend_supported`), else (flat [N, D], w_init [N],
@@ -937,7 +947,8 @@ def stream_frontend(features_config, vad_params, subsample, utterances,
     layout, offset = [], 0
     source = stream.stream_source(
         signal_cache, utterances, batch_size,
-        pin_memory=device.type == 'cuda')
+        pin_memory=device.type == 'cuda', njobs=njobs)
+    uploaded = []
     for names, signals, nsamples, _ in source:
         feats, w_init, w_em, count = ubm_frontend_program(
             signals.to(device, non_blocking=True),
@@ -952,9 +963,12 @@ def stream_frontend(features_config, vad_params, subsample, utterances,
         counts.append(count)
         layout.append((list(names), frames_per_row, offset))
         offset += signals.shape[0] * frames_per_row
+        uploaded.append(signals)
 
     # one host read of the voiced count, after every batch is enqueued
     num_read = int(torch.stack(counts).sum())
+    for signals in uploaded:  # their copies ended before the read
+        stream.recycle(signals)
     flat = torch.cat(feats_parts, dim=0)
     w_init = torch.cat(winit_parts, dim=0)
     w_em = torch.cat(wem_parts, dim=0)

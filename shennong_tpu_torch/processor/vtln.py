@@ -401,17 +401,19 @@ class VtlnProcessor(BaseProcessor):
             tot_impr / max(tot_count, 1e-10), tot_count)
         return transforms, warps
 
-    def process(self, utterances, ubm=None, group_by='utterance', *,
-                device, generator=None):
+    def process(self, utterances, ubm=None, group_by='utterance', njobs=1,
+                *, device, generator=None):
         """Compute the VTLN warp of each utterance (or speaker) on
         ``device``.
 
         Trains (or reuses) a UBM-GMM, fits the per-warp base linear
         transforms from warped MFCCs of every warp class, then
         alternates transform estimation and model updates for
-        ``num_iters`` rounds. ``generator`` is the source of the MFCC
-        dither, on ``device``. Returns a dict of warps keyed by
-        utterance or by speaker according to ``group_by``.
+        ``num_iters`` rounds. ``njobs`` bounds the decode of the audio
+        that the native loader does not read. ``generator`` is the
+        source of the MFCC dither, on ``device``. Returns a dict of
+        warps keyed by utterance or by speaker according to
+        ``group_by``.
         """
         if group_by not in ('utterance', 'speaker'):
             raise ValueError(
@@ -448,7 +450,8 @@ class VtlnProcessor(BaseProcessor):
             ubm._signal_cache = signal_cache
             ubm._retain_frontend = True
             try:
-                ubm.process(utterances, device=device, generator=generator)
+                ubm.process(utterances, njobs=njobs, device=device,
+                            generator=generator)
             finally:
                 ubm.__dict__.pop('_signal_cache', None)
                 ubm.__dict__.pop('_retain_frontend', None)
@@ -478,7 +481,7 @@ class VtlnProcessor(BaseProcessor):
                     features_config, utterances))
             body = self._device_body if on_device else self._staged_body
             body(utterances, ubm, utt2speak, cmvn_config, num_classes,
-                 device=device, generator=generator,
+                 njobs, device=device, generator=generator,
                  signal_cache=signal_cache,
                  front=front if on_device else None)
         finally:
@@ -513,8 +516,8 @@ class VtlnProcessor(BaseProcessor):
             self.lvtln.set_warp(c, this_warp)
 
     def _device_body(self, utterances, ubm, utt2speak, cmvn_config,
-                     num_classes, *, device, generator, signal_cache,
-                     front):
+                     num_classes, njobs, *, device, generator,
+                     signal_cache, front):
         """Device-resident LVTLN training over the front-end of
         :func:`shennong_tpu_torch.processor.ubm.stream_frontend`: the
         features never reach the host."""
@@ -531,7 +534,7 @@ class VtlnProcessor(BaseProcessor):
             with torch.profiler.record_function('ubm.frontend'):
                 front = ubm_module.stream_frontend(
                     features_config, ubm.vad, self.subsample, utterances,
-                    device=device, generator=generator,
+                    njobs=njobs, device=device, generator=generator,
                     signal_cache=signal_cache)
         flat, _, w_em, _, layout = front
         flat, w_em = flat.to(GMM_DTYPE), w_em.to(GMM_DTYPE)
@@ -548,7 +551,8 @@ class VtlnProcessor(BaseProcessor):
 
         moments = pipeline.accumulate_warp_mapping_stats(
             self.features, utterances, class_warps, keep, null_logger(),
-            device=device, generator=generator, signal_cache=signal_cache)
+            njobs=njobs, device=device, generator=generator,
+            signal_cache=signal_cache)
         self._set_base_transforms(moments, class_warps)
 
         def group_of(name):
@@ -603,14 +607,14 @@ class VtlnProcessor(BaseProcessor):
             ubm.num_gselect = ubm.gmm.num_gauss()
 
     def _staged_body(self, utterances, ubm, utt2speak, cmvn_config,
-                     num_classes, *, device, generator, signal_cache,
-                     front):
+                     num_classes, njobs, *, device, generator,
+                     signal_cache, front):
         """LVTLN training with the features on the host between the
         stages."""
         del front
         raw_mfcc = pipeline.extract_features(
-            self.features, utterances, device=device, generator=generator,
-            log=null_logger())
+            self.features, utterances, njobs=njobs, device=device,
+            generator=generator, log=null_logger())
 
         vad = {
             utt: decision.data.reshape(-1).astype(bool)
@@ -632,7 +636,8 @@ class VtlnProcessor(BaseProcessor):
 
         moments = pipeline.accumulate_warp_mapping_stats(
             self.features, utterances, class_warps, keep, null_logger(),
-            device=device, generator=generator, signal_cache=signal_cache)
+            njobs=njobs, device=device, generator=generator,
+            signal_cache=signal_cache)
         if moments is not None:
             self._set_base_transforms(moments, class_warps)
         else:
@@ -641,7 +646,7 @@ class VtlnProcessor(BaseProcessor):
             unwarped = _trim_subsample(raw_mfcc, vad, self.subsample)
             warped = pipeline.extract_features_warp_classes(
                 self.features, utterances, class_warps, null_logger(),
-                device=device, generator=generator)
+                njobs=njobs, device=device, generator=generator)
             for c, this_warp in enumerate(class_warps):
                 self.compute_mapping_transform(
                     unwarped, _trim_subsample(warped[c], vad, self.subsample),

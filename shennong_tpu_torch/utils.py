@@ -1,17 +1,40 @@
 """Small utilities shared across shennong_tpu_torch.
 
 The port's own copy of the host helpers of ``shennong_tpu/utils.py``
-that it calls: properties copies, numpy-aware dict comparison, file
-listing, a CLI exception guard and a numpy-aware JSON codec for the
-serializers' sidecars.
+that it calls: njobs clamping, properties copies, numpy-aware dict
+comparison, file listing, a CLI exception guard and a numpy-aware JSON
+codec for the serializers' sidecars.
 """
 
 import json
+import multiprocessing
 import os
 import re
 import sys
 
 import numpy as np
+
+from shennong_tpu_torch.logger import null_logger
+
+
+def get_njobs(njobs=None, log=null_logger()):
+    """Clamp a requested number of jobs to the machine's CPU count.
+
+    Raises ValueError if ``njobs`` is not strictly positive. ``None``
+    selects the number of available cores.
+    """
+    ncpus = multiprocessing.cpu_count()
+    if njobs is None:
+        return ncpus
+    if njobs <= 0:
+        raise ValueError(
+            'njobs must be strictly positive, it is {}'.format(njobs))
+    if njobs > ncpus:
+        log.warning(
+            'asking %d CPU cores but reducing to %d (max available)',
+            njobs, ncpus)
+        return ncpus
+    return njobs
 
 
 def copy_properties(obj):

@@ -7,6 +7,8 @@
    ``shennong_tpu_torch/``, unless :data:`EXEMPT` lists it with its
    reason and the ROADMAP item that removes it. An exemption that no
    longer hides a missing name fails too.
+   Every public function or method of ``shennong_tpu/`` that takes
+   ``njobs`` has a counterpart that takes it with the same default.
 2. The names ported with the walk behave as the JAX package's on the
    same inputs: the root's version helpers, ``Audio.channel``,
    ``precision`` and ``save``, ``Features.is_close``,
@@ -64,16 +66,9 @@ EXEMPT = {
     'parallel.fused:make_gmm_training_step': (
         'a sharded MFCC-and-EM step that nothing in the JAX package calls '
         'and no test holds; no item'),
-    'parallel.profiler': 'StageTimer, Counters, trace: A7',
-    'parallel.batch': 'load_signals, make_batches: A7',
-    'parallel.stream:recycle': 'the upload pool accounting: A7',
-    'parallel.stream:pool_peak_bytes': 'the upload pool accounting: A7',
-    'parallel.stream:pool_reset_peak': 'the upload pool accounting: A7',
-    'utils:get_njobs': 'njobs comes with pass-2 workers: A7',
     'utils:enable_compilation_cache': (
         "JAX's persistent compile cache; eager PyTorch compiles nothing "
         'per shape; no item'),
-    'pipeline:warmup': 'no per-shape compile to warm in eager PyTorch: A15',
     'ops.spectral:power_spectrum_matmul': (
         "the power spectrum as DFT matmuls, the TPU's MXU branch of "
         'power_spectrum; the port takes torch.fft.rfft, the reference\'s '
@@ -160,6 +155,60 @@ def test_every_public_name_has_a_counterpart():
         + '\n'.join(unexplained))
     stale = sorted(set(EXEMPT) - set(missing))
     assert not stale, f'exempted but present in the port: {stale}'
+
+
+def njobs_functions():
+    """(dotted module, 'name' or 'Class.method', njobs default source)
+    of every public function or method of shennong_tpu whose signature
+    has ``njobs``."""
+    found = []
+    for path, rel in jax_modules():
+        with open(path) as stream:
+            tree = ast.parse(stream.read(), path)
+        scopes = [('', node) for node in tree.body]
+        scopes += [(f'{node.name}.', sub) for node in tree.body
+                   if isinstance(node, ast.ClassDef)
+                   and not node.name.startswith('_')
+                   for sub in node.body]
+        for prefix, node in scopes:
+            if (not isinstance(node, ast.FunctionDef)
+                    or node.name.startswith('_')):
+                continue
+            args = node.args
+            positional = args.posonlyargs + args.args
+            defaults = dict(zip(
+                [a.arg for a in positional[len(positional)
+                                           - len(args.defaults):]],
+                args.defaults))
+            defaults.update(
+                (a.arg, d) for a, d in zip(args.kwonlyargs, args.kw_defaults)
+                if d is not None)
+            names = [a.arg for a in positional + args.kwonlyargs]
+            if 'njobs' in names:
+                found.append((rel, prefix + node.name,
+                              ast.literal_eval(defaults['njobs'])))
+    return found
+
+
+def test_njobs_parameters_have_counterparts():
+    """``njobs`` bounds host decode concurrency in both packages: every
+    public callable of the JAX package that takes it has a counterpart
+    that takes it, with the same default."""
+    import inspect
+
+    found = njobs_functions()
+    assert len(found) >= 30
+    wrong = []
+    for rel, name, default in found:
+        target = importlib.import_module(
+            'shennong_tpu_torch' + (f'.{rel}' if rel else ''))
+        for part in name.split('.'):
+            target = getattr(target, part)
+        parameter = inspect.signature(target).parameters.get('njobs')
+        if parameter is None or parameter.default != default:
+            wrong.append(f'{rel}:{name} (JAX default {default!r}, port '
+                         f'{None if parameter is None else parameter})')
+    assert not wrong, '\n'.join(wrong)
 
 
 def test_walk_sees_the_api():

@@ -297,3 +297,51 @@ def test_convert_crepe(monkeypatch, capsys, tmp_path, install):
     run_cli(monkeypatch, 'convert-crepe', checkpoint, '-o', explicit)
     with np.load(explicit) as ours:
         assert np.array_equal(ours['conv1/kernel'], ref['conv1/kernel'])
+
+
+def test_extract_njobs(monkeypatch, tmp_path, corpus):
+    """``extract -j 2`` writes the features of ``-j 1`` (every random
+    source at 0); ``-j 0`` is refused."""
+    defaults = list(energy.EnergyProcessor.__init__.__defaults__)
+    defaults[3] = 0.0  # the energy VAD's dither
+    monkeypatch.setattr(
+        energy.EnergyProcessor.__init__, '__defaults__', tuple(defaults))
+    config = yaml.safe_load(pipeline.get_default_config(
+        'mfcc', to_yaml=True, with_pitch='kaldi', with_cmvn=True,
+        with_delta=True))
+    config['mfcc']['dither'] = 0
+    config['pitch']['postprocessing']['delta_pitch_noise_stddev'] = 0
+    config_file = tmp_path / 'config.yaml'
+    config_file.write_text(yaml.safe_dump(config))
+    outputs = {}
+    for njobs in ('1', '2'):
+        output = str(tmp_path / f'j{njobs}.npz')
+        run_cli(monkeypatch, 'extract', '--device', 'cpu', '-j', njobs,
+                str(config_file), corpus, output)
+        outputs[njobs] = FeaturesCollection.load(output)
+    assert sorted(outputs['1']) == sorted(outputs['2'])
+    for name in outputs['1']:
+        np.testing.assert_array_equal(
+            outputs['1'][name].data, outputs['2'][name].data)
+    with pytest.raises(SystemExit):
+        run_cli(monkeypatch, 'extract', '--device', 'cpu', '-j', '0',
+                str(config_file), corpus, str(tmp_path / 'j0.npz'))
+
+
+def test_warmup_command(monkeypatch, tmp_path, corpus, capsys):
+    """``warmup --device cpu -j 2`` prints the JAX command's line;
+    a missing CUDA device is an error."""
+    config_file = str(tmp_path / 'config.yaml')
+    run_cli(monkeypatch, 'config', 'mfcc', '--pitch', 'kaldi', '--cmvn',
+            '--delta', '-o', config_file)
+    capsys.readouterr()
+    run_cli(monkeypatch, 'warmup', '--device', 'cpu', '-j', '2',
+            config_file, corpus)
+    line = capsys.readouterr().out.strip()
+    assert line.startswith('warmed 1 pipeline geometries in ')
+    assert line.endswith('s')
+    float(line.split()[-1][:-1])
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(SystemExit):
+        run_cli(monkeypatch, 'warmup', config_file, corpus)
+    assert 'no CUDA device' in capsys.readouterr().err

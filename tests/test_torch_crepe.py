@@ -533,9 +533,9 @@ def test_pipeline_matches_jax(wav_file, monkeypatch):
     decodes = []
     real = stream.decode_batch
 
-    def counting(chunk, pin_memory):
+    def counting(chunk, *args):
         decodes.append(len(chunk))
-        return real(chunk, pin_memory)
+        return real(chunk, *args)
 
     monkeypatch.setattr(stream, 'decode_batch', counting)
     ours = pipeline.extract_features(

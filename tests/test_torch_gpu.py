@@ -36,7 +36,10 @@ benchmark on the card against the CPU (warps equal, errors within
 0.005). Two processes on the card over gloo run the main path and the
 VTLN training (``tests/test_torch_distributed.py``'s worker): their
 transforms and warps the same bits, their features 1e-5 from the
-single-process card run.
+single-process card run. The upload pool lends page-locked buffers
+that come back after their copy, and a card extraction fills the
+counters of the extraction plane (one dispatch a batch, the int16
+bytes up, the fetched bytes down).
 """
 
 import copy
@@ -713,3 +716,51 @@ def test_two_processes_on_one_card(cuda_device, tmp_path, monkeypatch):
     assert sorted(merged) == sorted(single.keys())
     for name in single:
         dist.close(merged[name], single[name].data, dist.FEATURES_TOL)
+
+
+def test_pool_pins_and_recycles_on_the_card(cuda_device, corpus):
+    """The stream's buffers are page-locked for a CUDA consumer, come
+    back to the pool after the event that follows their copy, and the
+    next batch of that shape reuses them: the card sees the same
+    samples each time."""
+    from shennong_tpu_torch.parallel import stream
+
+    batches = list(stream.stream_batches(corpus, 2, pin_memory=True))
+    uploads = stream.PendingUploads(cuda_device)
+    copies = []
+    for _, signals, _, _ in batches:
+        assert signals.is_pinned()
+        copies.append(signals.to(cuda_device, non_blocking=True))
+        uploads.add(signals)
+    uploads.drain()
+    again = list(stream.stream_batches(corpus, 2, pin_memory=True))
+    reused = {id(b[1]) for b in batches} & {id(b[1]) for b in again}
+    assert reused
+    for (_, signals, _, _), copy_ in zip(again, copies):
+        assert torch.equal(copy_.cpu(), signals)
+    for _, signals, _, _ in again:
+        stream.recycle(signals)
+
+
+def test_counters_of_a_card_extraction(cuda_device, corpus, monkeypatch):
+    from shennong_tpu_torch.ops.framing import bucket_size
+    from shennong_tpu_torch.parallel import stream
+    from shennong_tpu_torch.parallel.profiler import counters
+
+    config = pipeline.get_default_config(
+        'mfcc', with_pitch='kaldi', with_cmvn=True, with_delta=True)
+    counters.reset()
+    monkeypatch.setattr(stream, '_pool', stream._BufferPool())
+    out = pipeline.extract_features(config, corpus, njobs=4,
+                                    device=cuda_device)
+    snap = counters.snapshot()
+    counts = [stream._scan_count(utt) for utt in corpus]
+    assert snap['dispatches'] == 1  # 4 utterances, one batch
+    assert snap['bytes_up'] == len(counts) * (2 * bucket_size(max(counts))
+                                              + 4)
+    assert snap['bytes_down'] > 0
+    for key in ('decode_s', 'dispatch_s', 'fetch_s', 'pass2_s'):
+        assert snap[key] > 0, key
+    assert 0 < stream.pool_peak_bytes() <= 7 * len(counts) * 2 * (
+        bucket_size(max(counts)))
+    assert len(out) == len(counts)

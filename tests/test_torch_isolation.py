@@ -1,8 +1,8 @@
 """The port stands alone: it imports nothing of the JAX package.
 
-1. No module of ``shennong_tpu_torch`` and not ``chip_smoke.py`` imports
-   ``shennong_tpu`` or ``jax`` (an AST walk, deferred imports and
-   ``importlib`` calls included).
+1. No module of ``shennong_tpu_torch``, not ``chip_smoke.py`` and not
+   ``pass_two_turns.py`` imports ``shennong_tpu`` or ``jax`` (an AST
+   walk, deferred imports and ``importlib`` calls included).
 2. With both blocked in ``sys.modules``, a child process imports the
    port, runs a small MFCC + Kaldi pitch + CMVN + delta
    ``extract_features(device='cpu')``, imports the UBM/VTLN trainers
@@ -65,7 +65,8 @@ def _imports(path):
 def test_no_import_of_the_jax_package():
     paths = sorted(glob.glob(
         os.path.join(REPO, 'shennong_tpu_torch', '**', '*.py'),
-        recursive=True)) + [os.path.join(REPO, 'chip_smoke.py')]
+        recursive=True)) + [os.path.join(REPO, name) for name in (
+            'chip_smoke.py', 'pass_two_turns.py')]
     assert len(paths) > 30
     offending = [
         f'{os.path.relpath(path, REPO)}:{line} imports {module}'

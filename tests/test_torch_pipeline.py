@@ -263,3 +263,127 @@ print('ok')
         text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == 'ok'
+
+
+# ------------------------------------------------------ overlapped pass 2
+
+def one_batch_each(monkeypatch):
+    """The fused executor at one utterance a batch, one in flight."""
+    defaults = dict(executor_module.FusedPipelineExecutor.__init__
+                    .__kwdefaults__)
+    defaults.update(batch_size=1, depth=1)
+    monkeypatch.setattr(executor_module.FusedPipelineExecutor.__init__,
+                        '__kwdefaults__', defaults)
+
+
+def by_utterance_config():
+    config = deterministic_config()
+    config['cmvn']['by_speaker'] = False  # each utterance a CMVN group
+    return config
+
+
+def test_pass_two_overlaps_pass_one(corpus, monkeypatch, no_energy_dither):
+    """Pass 2 of the first CMVN group runs on the thread ``pass-two``
+    before pass 1 dispatches its last program. The last dispatch waits
+    (30 s at most) for that pass 2 to start: a pass 2 that ran after
+    pass 1, or on pass 1's thread, fails the test."""
+    import threading
+
+    one_batch_each(monkeypatch)
+    events, started = [], threading.Event()
+    real_program = executor_module.pass_one_program
+    real_pass_two = pipeline._pass_two
+
+    def program(*args, **kwargs):
+        if len([e for e in events if e[0] == 'dispatch']) == len(corpus) - 1:
+            started.wait(timeout=30)
+        events.append(('dispatch', threading.current_thread().name))
+        return real_program(*args, **kwargs)
+
+    def pass_two(manager, triplets, log):
+        events.append(('pass2', threading.current_thread().name))
+        started.set()
+        return real_pass_two(manager, triplets, log)
+
+    monkeypatch.setattr(executor_module, 'pass_one_program', program)
+    monkeypatch.setattr(pipeline, '_pass_two', pass_two)
+    out = pipeline.extract_features(
+        by_utterance_config(), Utterances(corpus), device='cpu')
+    assert sorted(out) == sorted(name for name, _, _ in corpus)
+    dispatches = [i for i, e in enumerate(events) if e[0] == 'dispatch']
+    passes = [i for i, e in enumerate(events) if e[0] == 'pass2']
+    assert len(dispatches) == len(passes) == len(corpus)
+    assert passes[0] < dispatches[-1], events
+    assert {events[i][1] for i in passes} == {'pass-two'}
+    assert 'pass-two' not in {events[i][1] for i in dispatches}
+
+
+def test_pass_two_failure_on_the_worker_stops_pass_one(corpus, monkeypatch):
+    """A pass-2 failure on the worker stops pass 1 at the next drained
+    utterance, before the last batch; the worker is joined."""
+    import threading
+
+    one_batch_each(monkeypatch)
+    calls, failed = [], threading.Event()
+    real_program = executor_module.pass_one_program
+
+    def program(*args, **kwargs):
+        if len(calls) >= 2:
+            failed.wait(timeout=30)  # the failure has happened by now
+        calls.append(1)
+        return real_program(*args, **kwargs)
+
+    def fail(*_):
+        failed.set()
+        raise RuntimeError('pass 2 failed on the worker')
+
+    monkeypatch.setattr(executor_module, 'pass_one_program', program)
+    monkeypatch.setattr(pipeline, '_pass_two', fail)
+    before = {t.name for t in threading.enumerate()}
+    with pytest.raises(RuntimeError, match='failed on the worker'):
+        pipeline.extract_features(
+            by_utterance_config(), Utterances(corpus), device='cpu')
+    assert len(calls) < len(corpus)
+    assert 'pass-two' not in {t.name for t in threading.enumerate()} - before
+
+
+def test_overlapped_pass_two_equals_sequential(corpus, no_energy_dither):
+    """The overlapped flow gives the bits of pass 1 over every
+    utterance followed by one pass 2 over all of them."""
+    config = deterministic_config()
+    utterances = Utterances(corpus)
+    out = pipeline.extract_features(
+        copy.deepcopy(config), utterances, device='cpu')
+    manager = PipelineManager(
+        pipeline.init_config(copy.deepcopy(config)), utterances)
+    triplets = []
+    pipeline._pass_one(manager, list(utterances), 'cpu',
+                       torch.Generator().manual_seed(0),
+                       pipeline.get_logger('pipeline', 'warning'), None,
+                       triplets.extend, 1)
+    sequential = pipeline._pass_two(
+        manager, triplets, pipeline.get_logger('pipeline', 'warning'))
+    assert sorted(sequential) == sorted(out)
+    for name in out:
+        np.testing.assert_array_equal(out[name].data, sequential[name].data)
+        assert dict_equal(out[name].properties, sequential[name].properties)
+
+
+@pytest.mark.parametrize('njobs', [1, 4])
+def test_python_decode_njobs(corpus, monkeypatch, no_energy_dither, njobs):
+    """Audio the native loader does not read decodes on ``njobs``
+    threads, to the bits of the native route."""
+    from shennong_tpu_torch import native
+
+    config = deterministic_config()
+    utterances = Utterances(corpus)
+    native_out = pipeline.extract_features(
+        copy.deepcopy(config), utterances, device='cpu')
+    monkeypatch.setattr(native, 'available', lambda: False)
+    out = pipeline.extract_features(
+        copy.deepcopy(config), utterances, njobs=njobs, device='cpu')
+    for name in native_out:
+        np.testing.assert_array_equal(out[name].data, native_out[name].data)
+    with pytest.raises(ValueError, match='strictly positive'):
+        pipeline.extract_features(
+            copy.deepcopy(config), utterances, njobs=0, device='cpu')

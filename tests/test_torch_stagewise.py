@@ -329,9 +329,9 @@ def test_signal_cache_cap_streams_normally(corpus, monkeypatch):
     decoded = []
     real = stream.decode_batch
 
-    def counting(chunk, pin_memory):
+    def counting(chunk, *args):
         decoded.append(len(chunk))
-        return real(chunk, pin_memory)
+        return real(chunk, *args)
 
     monkeypatch.setattr(stream, 'decode_batch', counting)
     cache = stream.SignalCache(max_bytes=100000, device='cpu')
@@ -452,9 +452,9 @@ def test_stagewise_pipeline(corpus, lowered_limit, no_energy_dither,
     decoded = []
     real = stream.decode_batch
 
-    def counting(chunk, pin_memory):
+    def counting(chunk, *args):
         decoded.extend(utt.name for utt in chunk)
-        return real(chunk, pin_memory)
+        return real(chunk, *args)
 
     monkeypatch.setattr(stream, 'decode_batch', counting)
 
