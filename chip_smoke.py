@@ -75,12 +75,23 @@ generated corpus of 256 utterances (4 s and 6 s, 16 speakers):
   anchor): 'ci' with mfcc and rastaplp on the card and on the CPU
   (errors against each other and the recorded values, warps), then
   'full' mfcc on the card (its wall by stage, DTW pairs a second, the
-  mfcc row against ``doc/performance.md``, a profiled run).
+  mfcc row against ``doc/performance.md``, a profiled run);
+- the examples (``examples/torch/``): ``extract_features`` with
+  ``fetch_dtype`` 'float16' and 'bfloat16' against 'float32' (bytes
+  down, largest gap), then every card-runnable script called in this
+  process -- ``extract_corpus`` and ``vtln_warps`` on the corpus,
+  ``serve_throughput`` at batches of 16 and 64, ``long_audio``,
+  ``training_bench``, ``features_abx`` on 200 synthetic utterances,
+  ``abx_benchmark`` 'ci', ``abx_score``, ``pitch_comparison``, the
+  features of ``plot_features``, ``multihost_cmvn`` (two processes on
+  cuda:0) and ``sustained_scale`` at 1 h -- each output held against
+  the library calls it wraps with every random source at 0, and the
+  kernel launches of each counted from 0.
 
-The three Kaldi-pitch slices, the long-audio run and each process of
-the multi-process run must go through both pitch Viterbi kernels, the
-CREPE device decode through the banded one, the ABX runs through the
-DTW kernel. Every phase prints
+The three Kaldi-pitch slices, the long-audio run, each process of the
+multi-process run and the examples with Kaldi pitch must go through
+both pitch Viterbi kernels, the CREPE device decode through the banded
+one, the ABX runs and ABX examples through the DTW kernel. Every phase prints
 its lines; any failure raises and the script exits non-zero. The
 second-to-last lines are the kernels' JSON record and the card's name
 and power limit; the last line is the JSON verdict.
@@ -92,6 +103,7 @@ Imports nothing of JAX.
 import contextlib
 import copy
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -2761,7 +2773,7 @@ def abx_phase(card):
     DTW kernel's launches, the mfcc row against doc/performance.md
     (ABX_FULL_BAND), and a profiled run for the kernel's device time.
     Returns the DTW kernel's launches in the 'ci' and 'full' runs on
-    the card."""
+    the card, and the card's 'ci' result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2877,6 +2889,392 @@ def abx_phase(card):
             say(phase, f'{e.self_device_time_total / 1e3:9.3f} ms  '
                 f'x{e.count:<5d} {e.key[:90]}')
     say(phase, f'phase time {time.perf_counter() - begin:.1f} s')
+    return launches, ci['cuda']
+
+
+# --------------------------------------------------------------- examples
+
+EXAMPLES = os.path.join(HERE, 'examples', 'torch')
+#: tests/test_torch_pipeline.py's bounds of a reduced-precision fetch
+FETCH_TOL = {'float16': 2e-3, 'bfloat16': 8 * 2e-3}
+SUSTAINED_HOURS = 1.0    # the examples phase's sustained_scale run
+
+
+def load_example(name):
+    """The script ``examples/torch/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f'torch_example_{name}', os.path.join(EXAMPLES, name + '.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def counted(run):
+    """``run()``, with every kernel's launch count set to 0 just before
+    it: (its result, the launches of each kernel during it)."""
+    from shennong_tpu_torch.ops import cuda_viterbi, dtw, viterbi
+
+    for module in (cuda_viterbi, viterbi, dtw):
+        module.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, {**cuda_viterbi.LAUNCHES, **viterbi.LAUNCHES,
+                 **dtw.LAUNCHES}
+
+
+def same_collections(ours, ref, what):
+    """Two FeaturesCollections with the same names and the same bits."""
+    check(sorted(ours) == sorted(ref), f'{what}: other utterances')
+    for name in ref:
+        check(np.array_equal(ours[name].data, ref[name].data),
+              f'{what}: {name} differs from the library call')
+
+
+def dither_off(params):
+    """A deep copy of a UBM's or a VTLN trainer's parameters with the
+    MFCC dither of its features (and of its UBM's) at 0."""
+    params = copy.deepcopy(params)
+    for features in (params.get('features'),
+                     params.get('ubm', {}).get('features')):
+        if features:
+            features['mfcc']['dither'] = 0.0
+    return params
+
+
+def examples_phase(card, workdir, entries, abx_ci):
+    """Every card-runnable script of ``examples/torch/``, called in this
+    process on 'cuda' (``multihost_cmvn`` starts its two processes on
+    cuda:0): its numbers on lines of their own, its output held against
+    the library calls it wraps on the same inputs with every random
+    source at 0 (equal), its kernel launches counted from 0. Before
+    them, the MFCC slice with ``fetch_dtype`` 'float16' and 'bfloat16'
+    against 'float32': the bytes down and the largest relative gap.
+    ``abx_ci`` is the 'ci' result of the abx phase. Returns the launches
+    of each kernel over the scripts' runs."""
+    from shennong_tpu_torch import Utterances, pipeline
+    from shennong_tpu_torch.audio import Audio
+    from shennong_tpu_torch.features_collection import FeaturesCollection
+    from shennong_tpu_torch.parallel.profiler import counters
+
+    phase = 'examples'
+    begin = time.perf_counter()
+    directory = os.path.join(workdir, 'examples')
+    os.makedirs(directory, exist_ok=True)
+    launches = {'viterbi_forward': 0, 'viterbi_backtrace': 0, 'dtw': 0}
+
+    def tally(name, counts):
+        for kernel in launches:
+            launches[kernel] += counts[kernel]
+        say(phase, f'{name}: launches ' + ', '.join(
+            f'{kernel} {count}' for kernel, count in counts.items()))
+
+    corpus = Utterances(entries)
+    config = zero_randomness(slice_config('mfcc'), 'mfcc')
+
+    # extract_features(fetch_dtype=...): the MFCC slice for the bytes
+    # down (its CMVN scales the rounding of a column by 1 / its
+    # deviation, so its gap is printed), then MFCC + pitch alone, the
+    # configuration of tests/test_pipeline.py's bound, for the gap
+    plain = zero_randomness(pipeline.get_default_config(
+        'mfcc', with_pitch='kaldi'), 'mfcc')
+    out, down = {}, {}
+    with energy_dither_off():
+        for fetch in ('float32', 'float16', 'bfloat16'):
+            counters.reset()
+            out['slice', fetch] = pipeline.extract_features(
+                copy.deepcopy(config), corpus, fetch_dtype=fetch,
+                device='cuda')
+            down[fetch] = counters.snapshot()['bytes_down']
+            out['plain', fetch] = pipeline.extract_features(
+                copy.deepcopy(plain), corpus, fetch_dtype=fetch,
+                device='cuda')
+    floats = 2 * (down['float32'] - down['float16'])
+    vad = down['float32'] - floats
+    check(down['float16'] == down['bfloat16'] and 0 < vad < floats / 20,
+          f'fetch_dtype: bytes down {down}')
+
+    def gap(kind, fetch):
+        exact = out[kind, 'float32']
+        return max(float((np.abs(out[kind, fetch][n].data - exact[n].data)
+                          / np.maximum(np.abs(exact[n].data), 1.0)).max())
+                   for n in exact)
+
+    for fetch in ('float16', 'bfloat16'):
+        plain_gap = gap('plain', fetch)
+        check(plain_gap < FETCH_TOL[fetch], f'fetch_dtype {fetch}: relative '
+              f'gap {plain_gap} to float32, past {FETCH_TOL[fetch]}')
+        say(phase, f'fetch_dtype {fetch}: MFCC slice bytes down '
+            f'{int(down[fetch])} against {int(down["float32"])} for float32 '
+            f'({down[fetch] / down["float32"]:.4f}; float parts '
+            f'{int(floats)} -> {int(floats // 2)} B, VAD {int(vad)} B '
+            f'unchanged); largest gap to float32 relative to max(|x|, 1): '
+            f'MFCC + pitch {plain_gap:.3g} < {FETCH_TOL[fetch]}, the slice '
+            f'(after CMVN) {gap("slice", fetch):.3g}')
+
+    # extract_corpus: the phase's corpus, --pitch --cmvn --delta, to .npz
+    module = load_example('extract_corpus')
+    output = os.path.join(directory, 'corpus.npz')
+    with energy_dither_off():
+        report, counts = counted(lambda: module.extract(
+            corpus, output, pitch=True, cmvn=True, delta=True, device='cuda',
+            config=copy.deepcopy(config)))
+        ref = pipeline.extract_features(
+            copy.deepcopy(config), corpus, device='cuda')
+    same_collections(report['features'], ref, 'extract_corpus')
+    same_collections(FeaturesCollection.load(output), ref,
+                     'extract_corpus file')
+    say(phase, f'extract_corpus: {len(ref)} utterances, '
+        f'{report["hours"] * 3600:.0f} s of audio in '
+        f'{report["seconds"]:.3f} s, xRT {report["xrt"]:.1f}; equal to '
+        'extract_features')
+    tally('extract_corpus', counts)
+
+    # serve_throughput at its defaults (batches of 16), then of 64
+    from shennong_tpu_torch.ops import mel as melmod
+    from shennong_tpu_torch.ops.framing import num_frames
+    from shennong_tpu_torch.ops.pitch import (
+        PitchOpts, ProcessPitchOpts, num_pitch_frames)
+    from shennong_tpu_torch.ops.spectral import MfccOpts
+    from shennong_tpu_torch.parallel.fused import mfcc_pitch_pipeline
+
+    module = load_example('serve_throughput')
+    for batch in (16, 64):
+        report, counts = counted(
+            lambda: module.serve(batch=batch, device='cuda'))
+        frames = report['features'].shape[1]
+        check(counts['viterbi_forward'] == counts['viterbi_backtrace'] == 16,
+              f'serve_throughput: {counts}')
+        say(phase, f'serve_throughput batch {batch} x 5 s: xRT by window '
+            + ', '.join(f'{x:.1f}' for x in report['xrt'])
+            + ' (ms a batch ' + ', '.join(
+                f'{ms:.3f}' for ms in report['ms_per_batch'])
+            + f'), first batch {report["first_s"]:.3f} s; B1 at [{batch}, '
+            f'{frames}, 417] on {card}')
+        tally(f'serve_throughput batch {batch}', counts)
+    report = module.serve(batch=16, windows=1, iterations=1, dither=0.0,
+                          device='cuda')
+    opts = MfccOpts()
+    opts = dataclasses.replace(
+        opts, frame=dataclasses.replace(opts.frame, dither=0.0))
+    ref, ref_frames = mfcc_pitch_pipeline(
+        report['signals'], report['nsamples'], torch.as_tensor(
+            melmod.mel_banks(23, opts.frame.padded_window_size, 16000.0,
+                             20.0, 0.0, 100.0, -500.0, 1.0)[0],
+            device='cuda'),
+        opts, PitchOpts(), ProcessPitchOpts(), num_frames(80000, opts.frame),
+        num_pitch_frames(80000, PitchOpts()), device='cuda')
+    check(torch.equal(report['features'], ref)
+          and torch.equal(report['frames'], ref_frames),
+          'serve_throughput: not the bits of mfcc_pitch_pipeline')
+    say(phase, 'serve_throughput, no dither: equal to mfcc_pitch_pipeline')
+
+    # long_audio at its default 2 minutes, every dither at 0
+    module = load_example('long_audio')
+    report, counts = counted(lambda: module.run(dither=0.0, device='cuda'))
+    for name, proc in module.stages(dither=0.0):
+        ref = proc.process(report['audio'], device='cuda')
+        check(np.array_equal(report['stages'][name]['features'].data,
+                             ref.data), f'long_audio {name}: differs')
+        stage = report['stages'][name]
+        say(phase, f'long_audio {name}: {report["seconds"]:.0f} s, cold '
+            f'{stage["cold"]:.3f} s, warm {stage["warm"]:.3f} s, xRT '
+            f'{stage["xrt"]:.1f}; equal to the processor')
+    tally('long_audio', counts)
+
+    # vtln_warps on the phase's corpus, the default trainer, no dither
+    module = load_example('vtln_warps')
+    from shennong_tpu_torch.processor import VtlnProcessor
+
+    params = dither_off(VtlnProcessor().get_params())
+    features_config = pipeline.get_default_config(
+        'mfcc', with_cmvn=True, with_delta=True)
+    features_config['mfcc']['dither'] = 0
+    with energy_dither_off():
+        start = time.perf_counter()
+        report, counts = counted(lambda: module.train(
+            corpus, os.path.join(directory, 'warps.yaml'),
+            os.path.join(directory, 'warped.npz'), device='cuda',
+            vtln=VtlnProcessor(**copy.deepcopy(params)),
+            config=copy.deepcopy(features_config)))
+        wall = time.perf_counter() - start
+        training = corpus.fit_to_duration(300.0, truncate=True, shuffle=False)
+        warps = VtlnProcessor(**copy.deepcopy(params)).process(
+            training, group_by='speaker', device='cuda')
+        ref = pipeline.extract_features(
+            copy.deepcopy(features_config), corpus, warps=warps,
+            device='cuda')
+    check(report['warps'] == warps, f'vtln_warps: warps {report["warps"]} '
+          f'against {warps}')
+    same_collections(report['features'], ref, 'vtln_warps')
+    say(phase, f'vtln_warps: {len(warps)} speakers warped to '
+        f'{sorted(set(warps.values()))} in {wall:.2f} s (training and '
+        'warped extraction); warps and features equal to the library')
+    tally('vtln_warps', counts)
+
+    # training_bench at its defaults, then features_abx --synthetic 200,
+    # on one synthetic corpus
+    from shennong_tpu_torch.processor.ubm import DiagUbmProcessor
+
+    synthetic = os.path.join(directory, 'abx')
+    module = load_example('training_bench')
+    ubm = dict(module.UBM, features=dither_off(
+        {'features': DiagUbmProcessor(64).features})['features'])
+    vtln = dither_off(dict(VtlnProcessor().get_params(), **module.VTLN))
+    vtln['ubm'] = dict(vtln['ubm'], **ubm)
+    report, counts = counted(lambda: module.bench(
+        synthetic, device='cuda', ubm=ubm, vtln=vtln))
+    bench_corpus = Utterances(load_example('example_utils')
+                              .make_synthetic_corpus(
+                                  os.path.join(synthetic, 'corpus'), 200))
+    ref_ubm = DiagUbmProcessor(**copy.deepcopy(ubm))
+    ref_ubm.process(bench_corpus, njobs=4, device='cuda')
+    ref_warps = VtlnProcessor(**copy.deepcopy(vtln)).process(
+        bench_corpus, group_by='speaker', njobs=4, device='cuda')
+    gap = max(float(np.abs(getattr(report['ubm_model'].gmm, name)
+                           - getattr(ref_ubm.gmm, name)).max())
+              for name in ('weights', 'means', 'inv_vars'))
+    check(gap == 0, f'training_bench: the UBM differs from the library '
+          f'call by {gap}')
+    check(report['warps'] == ref_warps, 'training_bench: warps differ')
+    for label in ('ubm', 'vtln'):
+        walls = report[label]
+        say(phase, f'training_bench {label} ({report["seconds"]:.0f} s of '
+            f'audio): cold {walls[0]:.3f} s, warm ' + ', '.join(
+                f'{w:.3f}' for w in walls[1:]) + ' s; xRT warm '
+            + ', '.join(f'{report["seconds"] / w:.1f}' for w in walls[1:]))
+    say(phase, 'training_bench: the UBM and the warps equal to the library')
+    tally('training_bench', counts)
+
+    module = load_example('features_abx')
+    with energy_dither_off():
+        report, counts = counted(lambda: module.prepare(
+            synthetic, synthetic=200, ext='.npz', device='cuda',
+            vtln=VtlnProcessor(**copy.deepcopy(params)), dither=0.0))
+        training = bench_corpus.fit_to_duration(
+            100.0, truncate=True, shuffle=False)
+        warps = VtlnProcessor(**copy.deepcopy(params)).process(
+            training, group_by='speaker', device='cuda')
+        check(report['warps'] == warps, 'features_abx: warps differ')
+        for name, with_cmvn, warped in module.CONFIGS:
+            abx_config = pipeline.get_default_config(
+                'mfcc', with_cmvn=with_cmvn, with_delta=True)
+            abx_config['mfcc']['dither'] = 0.0
+            same_collections(report['features'][name],
+                             pipeline.extract_features(
+                                 abx_config, bench_corpus,
+                                 warps=warps if warped else None,
+                                 device='cuda'), f'features_abx {name}')
+            same_collections(FeaturesCollection.load(report['outputs'][name]),
+                             report['features'][name],
+                             f'features_abx {name} file')
+    say(phase, f'features_abx ({report["seconds"]:.0f} s of audio): '
+        + ', '.join(f'{stage} {wall:.3f} s (xRT '
+                    f'{report["seconds"] / wall:.1f})'
+                    for stage, wall in report['timings'].items())
+        + '; warps and features equal to the library')
+    tally('features_abx', counts)
+
+    # abx_benchmark --config ci (every feature) and abx_score
+    module = load_example('abx_benchmark')
+    report, counts = counted(lambda: module.run('ci', device='cuda'))
+    check(counts['dtw'] > 0, 'abx_benchmark: the DTW kernel never ran')
+    for feature in ('mfcc', 'rastaplp'):
+        for task in ('across', 'within'):
+            check(report['errors'][task][feature]
+                  == abx_ci['errors'][task][feature],
+                  f'abx_benchmark {task} {feature}: not the abx phase\'s')
+    say(phase, f'abx_benchmark ci: {len(report["errors"]["across"])} '
+        f'features in {report["elapsed"]:.2f} s; mfcc and rastaplp equal to '
+        'the abx phase\'s benchmark call')
+    for feature in report['errors']['across']:
+        say(phase, f'abx_benchmark ci {feature} (%): '
+            + abx_errors_line(report['errors'], feature))
+    tally('abx_benchmark', counts)
+
+    module = load_example('abx_score')
+    start = time.perf_counter()
+    report, counts = counted(
+        lambda: module.run(os.path.join(directory, 'score'), device='cuda'))
+    wall = time.perf_counter() - start
+    cpu = module.run(os.path.join(directory, 'score_cpu'), device='cpu')
+    for label, errors in report['errors'].items():
+        check(all(abs(a - b) < ABX_DEVICE_TOL
+                  for a, b in zip(errors, cpu['errors'][label])),
+              f'abx_score {label}: cuda {errors} cpu {cpu["errors"][label]}')
+        say(phase, f'abx_score {label}: across {errors[0]:.4f}, within '
+            f'{errors[1]:.4f} (cpu {cpu["errors"][label][0]:.4f}, '
+            f'{cpu["errors"][label][1]:.4f})')
+    check(counts['dtw'] > 0, 'abx_score: the DTW kernel never ran')
+    say(phase, f'abx_score: {wall:.2f} s on the card')
+    tally('abx_score', counts)
+
+    # pitch_comparison on tests/data/test.wav
+    from shennong_tpu_torch.processor import (
+        CrepePitchProcessor, KaldiPitchProcessor)
+
+    module = load_example('pitch_comparison')
+    start = time.perf_counter()
+    report, counts = counted(lambda: module.run(device='cuda'))
+    wall = time.perf_counter() - start
+    clean = Audio.load(module.DEFAULT_AUDIO).channel(0)
+    kaldi, crepe = report['tracks'][float('inf')]
+    ref_kaldi = KaldiPitchProcessor().process(clean, device='cuda').data
+    ref_crepe = CrepePitchProcessor(model_capacity='tiny').process(
+        clean, device='cuda').data
+    check(np.array_equal(kaldi, ref_kaldi[:len(kaldi)])
+          and np.array_equal(crepe, ref_crepe[:len(crepe)]),
+          'pitch_comparison: the clean tracks differ from the processors')
+    check(counts['viterbi_forward'] == len(module.SNR_LIST),
+          f'pitch_comparison: {counts}')
+    say(phase, f'pitch_comparison: {len(module.SNR_LIST)} conditions in '
+        f'{wall:.2f} s; the clean tracks equal to the processors')
+    tally('pitch_comparison', counts)
+
+    # plot_features: its features (matplotlib may be missing here)
+    module = load_example('plot_features')
+    audio = Audio.load(module.DEFAULT_WAV).channel(0)
+    (features, skipped), counts = counted(
+        lambda: module.extract(audio, device='cuda', dither=0.0))
+    from shennong_tpu_torch import processor as processors
+
+    for name, cls in (('spectrogram', processors.SpectrogramProcessor),
+                      ('filterbank', processors.FilterbankProcessor),
+                      ('mfcc', processors.MfccProcessor),
+                      ('plp', processors.PlpProcessor)):
+        check(np.array_equal(features[name].data, cls(dither=0).process(
+            audio, device='cuda').data), f'plot_features {name}: differs')
+    say(phase, f'plot_features: {sorted(features)} equal to the '
+        f'processors; skipped {skipped}')
+    tally('plot_features', counts)
+
+    # multihost_cmvn: two processes on cuda:0 over gloo
+    module = load_example('multihost_cmvn')
+    start = time.perf_counter()
+    report = module.launch(2, device='cuda:0',
+                           workdir=os.path.join(directory, 'multihost'))
+    say(phase, f'multihost_cmvn: 2 processes on cuda:0 in '
+        f'{time.perf_counter() - start:.2f} s, {report["frames"]} frames, '
+        f'statistics bit-equal to one process\'s (mean[:3] '
+        f'{np.round(report["mean"][:3], 4).tolist()})')
+
+    # sustained_scale at 1 h
+    module = load_example('sustained_scale')
+    report, counts = counted(lambda: module.run(
+        SUSTAINED_HOURS, os.path.join(directory, 'scale'), device='cuda'))
+    check(counts['viterbi_forward'] > 0, 'sustained_scale: no B1 launch')
+    say(phase, f'sustained_scale {report["audio_hours"]:.3f} h, '
+        f'{report["utterances"]} utterances: extract '
+        f'{report["extract_s"]:.3f} s, xRT {report["sustained_xrt"]:.1f}; '
+        f'RSS {report["rss_baseline_mb"]:.1f} -> '
+        f'{report["rss_peak_mb"]:.1f} MB; pool peak '
+        f'{report["pool_peak_bytes"]} B <= held {report["pool_held_bytes"]} B '
+        f'+ bound {report["pool_bound_bytes"]} B')
+    tally('sustained_scale', counts)
+
+    say(phase, f'phase time {time.perf_counter() - begin:.1f} s, launches '
+        f'{launches}')
     return launches
 
 
@@ -2998,7 +3396,10 @@ def main():
         launches.update(crepe_slice(card, workdir, entries))
         crepe_full(card, entries)
         bottleneck_phase(card, workdir, entries)
-        launches['dtw'] = abx_phase(card)
+        launches['dtw'], abx_ci = abx_phase(card)
+        for name, count in examples_phase(
+                card, workdir, entries, abx_ci).items():
+            launches[name] += count
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -8,9 +8,12 @@ on host threads and uploaded as int16 from pinned memory
 - :class:`FusedPipelineExecutor` runs the pipeline's pass 1 as one
   program per batch
   (:func:`shennong_tpu_torch.parallel.fused.pass_one_program`).
-  Up to ``depth`` batches are in flight: a batch's outputs are copied
-  to pinned host memory behind a CUDA event, and the host only waits
-  on that event when it drains the batch, ``depth`` dispatches later.
+  Up to ``depth`` batches are in flight: a batch's outputs, packed
+  into one uint8 payload
+  (:func:`shennong_tpu_torch.parallel.fused.pack_payload`, optionally
+  in half precision), are copied to a pinned host buffer behind a CUDA
+  event, and the host only waits on that event when it drains the
+  batch, ``depth`` dispatches later.
 - :class:`BatchExecutor` runs one frame processor per sweep (the
   stage-wise pass 1, and ``process_all``), sending hour-scale
   utterances through the processor's chunked extraction; for LVTLN
@@ -34,6 +37,7 @@ copy that reads it has finished.
 
 import collections
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -46,7 +50,8 @@ from shennong_tpu_torch.ops import plp as plp_ops
 from shennong_tpu_torch.ops import spectral
 from shennong_tpu_torch.ops.framing import num_frames
 from shennong_tpu_torch.parallel import stream
-from shennong_tpu_torch.parallel.fused import pass_one_program
+from shennong_tpu_torch.parallel.fused import (
+    FETCH_DTYPES, pack_payload, pass_one_program)
 from shennong_tpu_torch.parallel.profiler import counters
 from shennong_tpu_torch.processor.base import fresh_generator
 
@@ -81,12 +86,18 @@ class FusedPipelineExecutor:
         Replays the signal batches an earlier sweep over the same
         utterances uploaded (VTLN training before the warped
         extraction), instead of decoding and uploading them again.
+    fetch_dtype : str, optional
+        Precision of the features and pitch on their way to the host:
+        'float32' (None, the default, bit-exact), 'float16' or
+        'bfloat16' (half the bytes; the host upcasts them to float32,
+        which keeps the reduced precision). Any other name raises
+        ValueError.
     """
 
     def __init__(self, feat_proc, warps=None, energy_proc=None,
                  vad_proc=None, pitch_proc=None, pitch_post=None, *,
                  device, batch_size=64, depth=2, generator=None,
-                 signal_cache=None):
+                 signal_cache=None, fetch_dtype='float32'):
         self.feat_proc = feat_proc
         self.warps = warps
         self.energy_proc = energy_proc
@@ -98,6 +109,7 @@ class FusedPipelineExecutor:
         self.depth = max(1, int(depth))
         self.generator = generator
         self.signal_cache = signal_cache
+        self.fetch_dtype = check_fetch_dtype(fetch_dtype)
 
     def _static_opts(self):
         """The per-run static configuration of the fused program."""
@@ -187,27 +199,26 @@ class FusedPipelineExecutor:
             out = pass_one_program(
                 dev_signals, dev_nsamples, mel_weights, equal_loudness,
                 device=self.device, generator=generator, **kwargs)
+            layout = _payload_layout(out, self.fetch_dtype)
+            payload = pack_payload(
+                [out[key] for key, _, _ in layout], dtype=self.fetch_dtype)
             if not cuda:
-                return names, nsamples, out, None, signals
-            # one asynchronous copy per output into pinned memory; the
-            # event marks them done (and the input upload with them)
-            host = {}
-            for key, value in out.items():
-                host[key] = torch.empty(
-                    value.shape, dtype=value.dtype, pin_memory=True)
-                host[key].copy_(value, non_blocking=True)
+                return names, nsamples, layout, payload, None, signals
+            # one asynchronous copy into a pinned buffer; the event marks
+            # it done (and the input upload with it)
+            host = stream.payloads.take(payload.shape, pin_memory=True)
+            host.copy_(payload, non_blocking=True)
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
-            return names, nsamples, host, done, signals
+            return names, nsamples, layout, host, done, signals
 
-        def drain(names, nsamples, out, done, signals):
+        def drain(names, nsamples, layout, payload, done, signals):
             with counters.timed('fetch_s'):
                 if done is not None:
                     with torch.profiler.record_function('pass1.wait'):
                         done.synchronize()
-                host = {key: value.numpy() for key, value in out.items()}
-            counters.add('bytes_down', sum(
-                value.nbytes for value in host.values()))
+                host = _unpack_payload(payload, layout)
+            counters.add('bytes_down', payload.numel())
             # the event follows the input upload too
             stream.recycle(signals)
             feats = host['feats']
@@ -219,19 +230,19 @@ class FusedPipelineExecutor:
             for row, name in enumerate(names):
                 count = int(nsamples[row])
                 nframes = self.feat_proc.output_frames(count)
-                # copies, not views: a view would keep the whole padded
-                # batch alive as long as one of its utterances
+                # copies, not views: the payload buffer goes back to its
+                # pool after this batch
                 utt_features = Features(
-                    np.ascontiguousarray(feats[row, :nframes]),
+                    feats[row, :nframes].copy(),
                     self.feat_proc.times(nframes),
                     properties=_properties(self.feat_proc, self.warps, name))
-                utt_vad = (np.ascontiguousarray(vad[row, :nframes])
+                utt_vad = (vad[row, :nframes].copy()
                            if vad is not None else None)
                 utt_pitch = None
                 if pitch is not None:
                     pframes = self.pitch_proc.output_frames(count)
                     utt_pitch = Features(
-                        np.ascontiguousarray(pitch[row, :pframes]),
+                        pitch[row, :pframes].copy(),
                         self.pitch_proc.times(pframes),
                         properties=self.pitch_post.get_properties(
                             raw_props))
@@ -243,6 +254,9 @@ class FusedPipelineExecutor:
                     vads[name] = utt_vad
                 if utt_pitch is not None:
                     pitches[name] = utt_pitch
+            # the event followed the copy into the buffer, and every
+            # utterance holds its own copy out of it
+            stream.payloads.give(payload)
 
         inflight = collections.deque()
         for names, signals, nsamples, _ in stream.stream_source(
@@ -254,6 +268,49 @@ class FusedPipelineExecutor:
         while inflight:
             drain(*inflight.popleft())
         return features, vads, pitches
+
+
+def check_fetch_dtype(fetch_dtype):
+    """The name of a fetch precision, 'float32' for None; another name
+    than 'float32', 'float16' or 'bfloat16' raises ValueError."""
+    name = 'float32' if fetch_dtype is None else fetch_dtype
+    if name not in FETCH_DTYPES:
+        raise ValueError(
+            'fetch_dtype must be one of {}, got {}'.format(
+                ', '.join(FETCH_DTYPES), fetch_dtype))
+    return name
+
+
+def _payload_layout(out, fetch_dtype):
+    """(name, shape, dtype) of each part of a batch's payload, in the
+    pack order of the JAX package (feats, vad, pitch): the float parts
+    carry ``fetch_dtype``, the uint8 VAD passes through."""
+    target = FETCH_DTYPES[fetch_dtype]
+    layout = [('feats', tuple(out['feats'].shape), target)]
+    if 'vad' in out:
+        layout.append(('vad', tuple(out['vad'].shape), torch.uint8))
+    if 'pitch' in out:
+        layout.append(('pitch', tuple(out['pitch'].shape), target))
+    return layout
+
+
+def _unpack_payload(payload, layout):
+    """The named numpy arrays of a host payload: views of its bytes,
+    the half-precision parts upcast to float32. A part whose offset is
+    not a multiple of its item size (the float pitch after an odd
+    number of VAD bytes) is copied out first, to be viewed."""
+    out, cursor = {}, 0
+    for name, shape, dtype in layout:
+        nbytes = math.prod(shape) * dtype.itemsize
+        part = payload[cursor:cursor + nbytes]
+        if cursor % dtype.itemsize:
+            part = part.clone()
+        cursor += nbytes
+        part = part.view(dtype).reshape(shape)
+        if dtype in (torch.float16, torch.bfloat16):
+            part = part.float()
+        out[name] = part.numpy()
+    return out
 
 
 @dataclasses.dataclass

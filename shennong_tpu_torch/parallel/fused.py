@@ -6,9 +6,10 @@ Counterpart of :func:`shennong_tpu.parallel.fused.pass_one_program`:
 everything pass 1 needs from a padded signal batch, computed on one
 device without host round trips between stages -- the feature frames
 (MFCC, filterbank, PLP or spectrogram), the energy-VAD decisions that
-weight the CMVN statistics, and the post-processed Kaldi pitch. The
-reference's ``pack_payload`` (one fetch per batch through a relay) has
-no counterpart: the executor copies each output to pinned host memory.
+weight the CMVN statistics, and the post-processed Kaldi pitch.
+:func:`pack_payload` packs a batch's outputs into one uint8 payload,
+optionally in half precision, which the executor copies to pinned host
+memory in one transfer.
 
 The step makers (:func:`make_em_train_steps`, :func:`make_accumulate_step`,
 :func:`make_lvtln_round_step`, :func:`make_lvtln_train_steps`) are the
@@ -114,6 +115,31 @@ def pass_one_program(signals, nsamples, mel_weights, equal_loudness, kind,
             raw_pitch, pitch_frames, post_opts, noise=noise)
 
     return out
+
+
+#: the float precisions of :func:`pack_payload`, by name
+FETCH_DTYPES = {'float32': torch.float32, 'float16': torch.float16,
+                'bfloat16': torch.bfloat16}
+
+
+def pack_payload(parts, dtype='float32'):
+    """Pack device tensors into one contiguous uint8 payload.
+
+    Counterpart of :func:`shennong_tpu.parallel.fused.pack_payload`. The
+    float parts are cast on their device to ``dtype`` ('float32', the
+    default and bit-exact, 'float16' or 'bfloat16', which halve their
+    bytes); uint8 parts (the VAD decisions) pass through. Each part is
+    viewed as bytes (C order, the device's little-endian layout) and
+    the parts are concatenated in the order given, so one copy brings a
+    batch's outputs to the host, where the executor views them back.
+    """
+    target = FETCH_DTYPES[dtype]
+    chunks = []
+    for part in parts:
+        if part.dtype != torch.uint8:
+            part = part.to(target)
+        chunks.append(part.contiguous().reshape(-1).view(torch.uint8))
+    return torch.cat(chunks)
 
 
 def mfcc_pitch_pipeline(signals, nsamples, mel_weights, mfcc_opts,

@@ -40,7 +40,8 @@ from shennong_tpu_torch.parallel.profiler import counters
 
 
 class _BufferPool:
-    """Recycled int16 batch buffers, keyed by (shape, pinned).
+    """Recycled batch buffers of one dtype (int16 signals by default),
+    keyed by (shape, pinned).
 
     Counterpart of the JAX package's pool of numpy buffers. A buffer is
     touched once and reused, and a pinned one is page-locked once:
@@ -51,7 +52,8 @@ class _BufferPool:
     garbage collected.
     """
 
-    def __init__(self, max_per_key=4, max_keys=32):
+    def __init__(self, max_per_key=4, max_keys=32, dtype=torch.int16):
+        self._dtype = dtype
         self._free = {}
         self._max = max_per_key
         self._max_keys = max_keys
@@ -79,7 +81,7 @@ class _BufferPool:
                 nbytes = _nbytes(buffer)
                 self._pooled -= nbytes
             else:
-                buffer = torch.empty(key[0], dtype=torch.int16,
+                buffer = torch.empty(key[0], dtype=self._dtype,
                                      pin_memory=key[1])
                 nbytes = _nbytes(buffer)
             self._outstanding += nbytes
@@ -127,6 +129,12 @@ def _nbytes(tensor):
 
 
 _pool = _BufferPool()
+
+#: the pinned uint8 buffers that the fused pass 1 downloads its packed
+#: outputs into (:func:`shennong_tpu_torch.parallel.fused.pack_payload`),
+#: apart from the audio plane: :func:`pool_peak_bytes` does not count
+#: them
+payloads = _BufferPool(dtype=torch.uint8)
 
 
 def recycle(tensor):

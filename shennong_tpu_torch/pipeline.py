@@ -58,7 +58,7 @@ from shennong_tpu_torch.logger import get_logger, null_logger
 from shennong_tpu_torch.ops.postops import (
     accumulate_cmvn_stats, compute_deltas_host)
 from shennong_tpu_torch.parallel.executor import (
-    BatchExecutor, FusedPipelineExecutor)
+    BatchExecutor, FusedPipelineExecutor, check_fetch_dtype)
 from shennong_tpu_torch.parallel.profiler import counters
 from shennong_tpu_torch.parallel.stream import SignalCache
 from shennong_tpu_torch.pipeline_manager import PipelineManager
@@ -158,8 +158,8 @@ def get_default_config(
     return config
 
 
-def extract_features(configuration, utterances, warps=None, njobs=1, *,
-                     device, generator=None,
+def extract_features(configuration, utterances, warps=None, njobs=1,
+                     fetch_dtype=None, *, device, generator=None,
                      log=get_logger('pipeline', 'warning')):
     """Run a features extraction pipeline over ``utterances``.
 
@@ -177,6 +177,13 @@ def extract_features(configuration, utterances, warps=None, njobs=1, *,
         Host decode concurrency: the threads that load the audio the
         native PCM16 loader does not read (validated by
         :func:`shennong_tpu_torch.utils.get_njobs`; default 1).
+    fetch_dtype : str, optional
+        Precision of the device-to-host copy of the fused pass 1's
+        features and pitch: 'float32' (None, the default, bit-exact),
+        'float16' or 'bfloat16' (half those bytes; the values come back
+        as float32 but keep the reduced precision, about 1e-3 relative
+        for 'float16', and pass 2 runs on them). Any other name raises
+        ValueError. The stage-wise and per-utterance paths ignore it.
     device : str or torch.device
         Where pass 1, and the VTLN training of a 'vtln' section, run
         ('cuda', 'cuda:1', 'cpu', ...).
@@ -192,6 +199,7 @@ def extract_features(configuration, utterances, warps=None, njobs=1, *,
     features : :class:`~shennong_tpu.features_collection.FeaturesCollection`
     """
     njobs = get_njobs(njobs, log=log)
+    fetch_dtype = check_fetch_dtype(fetch_dtype)
     config = init_config(configuration, log=log)
     log.info(
         'detected format for utterances index is: %s',
@@ -213,7 +221,7 @@ def extract_features(configuration, utterances, warps=None, njobs=1, *,
     results = {}
     with _pass_two_worker(manager, log, results) as pass_two:
         _pass_one(manager, utterances, device, generator, log, cache,
-                  pass_two, njobs)
+                  pass_two, njobs, fetch_dtype)
     return FeaturesCollection(
         {utt.name: results[utt.name] for utt in utterances})
 
@@ -262,7 +270,7 @@ def _pass_two_worker(manager, log, results):
 
 
 def _pass_one(manager, utterances, device, generator, log, cache, on_group,
-              njobs):
+              njobs, fetch_dtype='float32'):
     """Pass 1 over ``utterances`` by the path chosen up front, their
     CMVN statistics accumulated in ``manager.cmvn_stats``.
 
@@ -273,7 +281,8 @@ def _pass_one(manager, utterances, device, generator, log, cache, on_group,
     list: pass 2 can overlap pass 1, and a failure raised by
     ``on_group`` stops pass 1 at once. On the other paths it is called
     once with every utterance. ``cache`` replays the signals VTLN
-    training uploaded, or is None; ``njobs`` bounds the audio decode.
+    training uploaded, or is None; ``njobs`` bounds the audio decode;
+    ``fetch_dtype`` is the fused path's fetch precision.
     """
     rates = set(
         meta.sample_rate for meta in manager.audio_metadata.values())
@@ -286,7 +295,7 @@ def _pass_one(manager, utterances, device, generator, log, cache, on_group,
     elif _fits_fused(manager, utterances):
         _fused_pass_one(
             manager, utterances, device, generator, log, cache, on_group,
-            njobs)
+            njobs, fetch_dtype)
     else:
         on_group(_stagewise_pass_one(
             manager, utterances, device, generator, log, cache, njobs))
@@ -499,7 +508,7 @@ def _with_audio_properties(manager, utterance, features):
 
 
 def _fused_pass_one(manager, utterances, device, generator, log, cache,
-                    on_group, njobs):
+                    on_group, njobs, fetch_dtype='float32'):
     """The fused pass 1, handing each CMVN group's triplets to
     ``on_group`` as soon as the group has landed (see
     :func:`_pass_one`)."""
@@ -514,7 +523,8 @@ def _fused_pass_one(manager, utterances, device, generator, log, cache,
         vad_proc=manager.make('vad') if with_vad else None,
         pitch_proc=manager.make('pitch', first) if with_pitch else None,
         pitch_post=manager.make('pitch_post') if with_pitch else None,
-        device=device, generator=generator, signal_cache=cache)
+        device=device, generator=generator, signal_cache=cache,
+        fetch_dtype=fetch_dtype)
 
     with_cmvn = 'cmvn' in config
     by_name = {utt.name: utt for utt in utterances}

@@ -80,10 +80,6 @@ EXEMPT = {
         'the float32 WAV loader: the port loads PCM16 rows with '
         'native.load_wav_batch_i16 and reads other WAVs with scipy; no '
         'item'),
-    'parallel.fused:pack_payload': (
-        "the fetch through a relay of extract_features(fetch_dtype=...), "
-        'not ported: the device idles 0.968 of the MFCC slice, so the '
-        'fetch is not the bound (PERF.md); no item'),
 }
 
 

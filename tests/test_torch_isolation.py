@@ -1,8 +1,10 @@
 """The port stands alone: it imports nothing of the JAX package.
 
-1. No module of ``shennong_tpu_torch``, not ``chip_smoke.py`` and not
-   ``pass_two_turns.py`` imports ``shennong_tpu`` or ``jax`` (an AST
-   walk, deferred imports and ``importlib`` calls included).
+1. No module of ``shennong_tpu_torch``, not ``chip_smoke.py``, not
+   ``pass_two_turns.py``, no script of ``examples/torch/`` and not the
+   port's site generator ``doc/torch/gen_docs.py`` imports
+   ``shennong_tpu`` or ``jax`` (an AST walk, deferred imports and
+   ``importlib`` calls included).
 2. With both blocked in ``sys.modules``, a child process imports the
    port, runs a small MFCC + Kaldi pitch + CMVN + delta
    ``extract_features(device='cpu')``, imports the UBM/VTLN trainers
@@ -11,6 +13,9 @@
    the CREPE and bottleneck modules, runs a one-hot encoding of an
    alignment and the ABX evaluator's distances over segments cut by
    it, and runs the CLI's ``config --vtln`` and ``config bottleneck``.
+   Another child, with both blocked too, imports every script of
+   ``examples/torch/``, runs ``serve_throughput`` and
+   ``extract_corpus`` on the CPU, and builds the port's site.
 3. The port's own host layer writes the same files as the JAX
    package's: a ``FeaturesCollection`` saved by either loads in the
    other with equal arrays, dtypes and properties.
@@ -66,8 +71,10 @@ def test_no_import_of_the_jax_package():
     paths = sorted(glob.glob(
         os.path.join(REPO, 'shennong_tpu_torch', '**', '*.py'),
         recursive=True)) + [os.path.join(REPO, name) for name in (
-            'chip_smoke.py', 'pass_two_turns.py')]
-    assert len(paths) > 30
+            'chip_smoke.py', 'pass_two_turns.py',
+            os.path.join('doc', 'torch', 'gen_docs.py'))] + sorted(glob.glob(
+                os.path.join(REPO, 'examples', 'torch', '*.py')))
+    assert len(paths) > 45
     offending = [
         f'{os.path.relpath(path, REPO)}:{line} imports {module}'
         for path in paths for line, module in _imports(path)
@@ -157,6 +164,63 @@ print('ok')
         text = stream.read()
     assert 'mfcc:' in text and 'pitch:' in text and 'delta:' in text
     assert 'vtln:' in text and 'ubm:' in text
+
+
+#: refuses the blocked packages' imports in a child process (scipy
+#: probes sys.modules for jax, so they stay out of it rather than
+#: mapped to None)
+BLOCKER = f'''
+import sys
+
+
+class Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in {BLOCKED!r}:
+            raise ImportError(f'{{name}} is blocked')
+
+
+sys.meta_path.insert(0, Blocked())
+'''
+
+
+def test_examples_and_docs_run_with_the_jax_package_blocked(tmp_path):
+    wav = str(tmp_path / 'a.wav')
+    t = np.arange(24000) / 16000
+    scipy.io.wavfile.write(
+        wav, 16000, (np.sin(2 * np.pi * 140 * t) * 9000).astype(np.int16))
+    script = BLOCKER + f'''
+import glob, importlib.util, os
+import numpy as np
+modules = {{}}
+for path in sorted(glob.glob(os.path.join('examples', 'torch', '*.py'))):
+    name = os.path.basename(path)[:-3]
+    spec = importlib.util.spec_from_file_location('example_' + name, path)
+    modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(modules[name])
+assert len(modules) == 14, sorted(modules)  # 13 scripts and their helpers
+report = modules['serve_throughput'].serve(
+    batch=1, seconds=0.5, windows=1, iterations=1, device='cpu')
+assert report['features'].shape == (1, 48, 42)
+from shennong_tpu_torch import Utterances
+out = modules['extract_corpus'].extract(
+    Utterances([('a', {wav!r}, 's')]), {str(tmp_path / 'out.npz')!r},
+    pitch=True, cmvn=True, delta=True, device='cpu')
+assert out['features']['a'].shape == (148, 42)
+spec = importlib.util.spec_from_file_location(
+    'site', os.path.join('doc', 'torch', 'gen_docs.py'))
+site = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(site)
+assert site.build({str(tmp_path / 'html')!r}) > 60
+loaded = [name for name, module in sys.modules.items()
+          if module is not None and name.split('.')[0] in {BLOCKED!r}]
+assert not loaded, loaded
+print('ok')
+'''
+    proc = subprocess.run(
+        [sys.executable, '-c', script], cwd=REPO, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith('ok')
 
 
 def _collection(features_cls, collection_cls):

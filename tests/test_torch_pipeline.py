@@ -387,3 +387,153 @@ def test_python_decode_njobs(corpus, monkeypatch, no_energy_dither, njobs):
     with pytest.raises(ValueError, match='strictly positive'):
         pipeline.extract_features(
             copy.deepcopy(config), utterances, njobs=0, device='cpu')
+
+
+# ----------------------------------------------------------- fetch dtype
+
+#: port against JAX package after a reduced-precision fetch, relative to
+#: max(|value|, 1) as tests/test_pipeline.py:108-111 scales it: float16
+#: at that test's 2e-3; bfloat16 at 2e-3 times the ratio of the two
+#: formats' unit roundoffs (2**-8 / 2**-11 = 8), since one bfloat16 ulp
+#: is already 3.9e-3 of a value in [1, 2) and float32 values 1e-3 apart
+#: can round to neighbouring bfloat16 values
+FETCH_TOL = {'float16': 2e-3, 'bfloat16': 8 * 2e-3}
+
+
+@pytest.mark.parametrize('fetch_dtype', ['float16', 'bfloat16'])
+def test_fetch_dtype_matches_reference(corpus, no_energy_dither, fetch_dtype):
+    """A half-precision fetch gives the JAX package's values on the same
+    utterances, scaled as tests/test_pipeline.py scales them: the cast
+    happens at the same point (before pass 2) in both packages."""
+    config = deterministic_config()
+    ref = jpipeline.extract_features(
+        copy.deepcopy(config), JUtterances(corpus), fetch_dtype=fetch_dtype)
+    ours = pipeline.extract_features(
+        copy.deepcopy(config), Utterances(corpus), device='cpu',
+        fetch_dtype=fetch_dtype)
+    exact = pipeline.extract_features(
+        copy.deepcopy(config), Utterances(corpus), device='cpu')
+    assert list(ours.keys()) == list(ref.keys())
+    for name in ref:
+        assert ours[name].dtype == ref[name].dtype == np.float32
+        assert ours[name].shape == ref[name].shape, name
+        scale = np.maximum(np.abs(ref[name].data), 1.0)
+        err = np.abs(ours[name].data - ref[name].data) / scale
+        assert err.max() < FETCH_TOL[fetch_dtype], (name, err.max())
+        # the reduced precision is there: not the float32 bits
+        assert not np.array_equal(ours[name].data, exact[name].data)
+
+
+def test_fetch_dtype_float32_is_the_programs_bits(corpus, monkeypatch,
+                                                  no_energy_dither):
+    """The default payload hands over the very bits of the pass-1
+    program's outputs (the earlier fetch copied each output alone), and
+    None means 'float32'."""
+    programs = []
+    real = executor_module.pass_one_program
+
+    def recording(*args, **kwargs):
+        programs.append(real(*args, **kwargs))
+        return programs[-1]
+
+    monkeypatch.setattr(executor_module, 'pass_one_program', recording)
+    config = deterministic_config()
+    manager = PipelineManager(config, Utterances(corpus))
+    first = Utterances(corpus)[corpus[0][0]]
+    results = []
+    for fetch_dtype in (None, 'float32'):
+        programs.clear()
+        executor = executor_module.FusedPipelineExecutor(
+            manager.make('features', first),
+            energy_proc=manager.make('energy', first),
+            vad_proc=manager.make('vad'),
+            pitch_proc=manager.make('pitch', first),
+            pitch_post=manager.make('pitch_post'),
+            device='cpu', batch_size=4, fetch_dtype=fetch_dtype)
+        assert executor.fetch_dtype == 'float32'
+        results.append(executor.run(Utterances(corpus)))
+    (out,) = programs
+    features, vads, pitches = results[0]
+    # one batch, rows in the stream's length order
+    order = sorted(corpus, key=lambda e: Audio.scan(e[1]).nsamples)
+    for row, (name, _, _) in enumerate(order):
+        nframes = features[name].nframes
+        np.testing.assert_array_equal(
+            features[name].data, out['feats'][row, :nframes].numpy())
+        np.testing.assert_array_equal(
+            vads[name], out['vad'][row, :nframes].numpy())
+        np.testing.assert_array_equal(
+            pitches[name].data,
+            out['pitch'][row, :pitches[name].nframes].numpy())
+        for collection, other in zip(results[0], results[1]):
+            np.testing.assert_array_equal(
+                getattr(collection[name], 'data', collection[name]),
+                getattr(other[name], 'data', other[name]))
+
+
+@pytest.mark.parametrize('fetch_dtype', ['int8', 'float64', 'half'])
+def test_fetch_dtype_unknown_raises(corpus, fetch_dtype):
+    with pytest.raises(ValueError, match='fetch_dtype'):
+        pipeline.extract_features(
+            deterministic_config(), Utterances(corpus), device='cpu',
+            fetch_dtype=fetch_dtype)
+    with pytest.raises(ValueError, match='fetch_dtype'):
+        executor_module.FusedPipelineExecutor(
+            MfccProcessor(), device='cpu', fetch_dtype=fetch_dtype)
+
+
+def test_fetch_dtype_halves_bytes_down(corpus, no_energy_dither):
+    """``bytes_down`` counts the payload: the float parts at half their
+    bytes, the uint8 VAD unchanged."""
+    from shennong_tpu_torch.parallel.profiler import counters
+
+    down = {}
+    for fetch_dtype in ('float32', 'float16', 'bfloat16'):
+        counters.reset()
+        pipeline.extract_features(
+            deterministic_config(), Utterances(corpus), device='cpu',
+            fetch_dtype=fetch_dtype)
+        down[fetch_dtype] = counters.snapshot()['bytes_down']
+    # one batch of 4 rows: feats [4, F, 13] and pitch [4, F, 3] floats
+    # (the same frame grid), the VAD [4, F] uint8
+    rows = len(corpus)
+    vad = down['float32'] - 2 * (down['float32'] - down['float16'])
+    assert down['float16'] == down['bfloat16']
+    assert vad > 0 and vad % rows == 0
+    floats = down['float32'] - vad
+    assert down['float16'] == vad + floats // 2
+    assert floats == 4 * vad * (13 + 3)
+
+
+def test_pack_payload_round_trips():
+    """Every part comes back from the payload in the layout's order:
+    the floats at the fetch precision, the VAD's bytes untouched, an
+    odd VAD putting the pitch off its alignment."""
+    from shennong_tpu_torch.parallel.fused import pack_payload
+
+    rng = np.random.RandomState(0)
+    out = {
+        'feats': torch.from_numpy(rng.randn(3, 5, 13).astype(np.float32)),
+        'vad': torch.from_numpy(rng.randint(0, 2, (3, 5)).astype(np.uint8)),
+        'pitch': torch.from_numpy(rng.randn(3, 5, 3).astype(np.float32))}
+    for fetch_dtype, dtype in (('float32', torch.float32),
+                               ('float16', torch.float16),
+                               ('bfloat16', torch.bfloat16)):
+        layout = executor_module._payload_layout(out, fetch_dtype)
+        assert [name for name, _, _ in layout] == ['feats', 'vad', 'pitch']
+        payload = pack_payload(
+            [out[name] for name, _, _ in layout], dtype=fetch_dtype)
+        assert payload.dtype == torch.uint8 and payload.dim() == 1
+        assert payload.numel() == (
+            (3 * 5 * 13 + 3 * 5 * 3) * dtype.itemsize + 3 * 5)
+        back = executor_module._unpack_payload(payload, layout)
+        assert list(back) == ['feats', 'vad', 'pitch']
+        np.testing.assert_array_equal(back['vad'], out['vad'].numpy())
+        for name in ('feats', 'pitch'):
+            assert back[name].dtype == np.float32
+            np.testing.assert_array_equal(
+                back[name], out[name].to(dtype).float().numpy())
+    # without VAD or pitch the layout has the features alone
+    layout = executor_module._payload_layout(
+        {'feats': out['feats']}, 'float32')
+    assert [name for name, _, _ in layout] == ['feats']
