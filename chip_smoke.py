@@ -8,13 +8,16 @@ against its plain PyTorch version on the card (the pitch Viterbi at the
 corpus batch [64, 598, 417], edge shapes, the chunk shape of
 hour-scale pitch and the 12-minute whole run [1, 71998, 417]; the
 banded Viterbi of the CREPE device decode at its slice shape [33, 490,
-360], [16, 1024, 360] and [1, 8192, 360]; the ABX evaluator's DTW at
-the benchmark's [4096, 24, 24], [512, 64, 64] and [1, 300, 280]),
-prints each kernel's
-cluster size, registers and spills, milliseconds, time per frame,
-bound and share of the bound, checks the processors against
-``tests/data/golden_real.npz``
-and ``tests/kaldi_oracle.py``, and drives the port's paths over a
+360], [16, 1024, 360] and [1, 8192, 360], with each states-a-thread
+variant and its forward timed apart from its backtrace; the ABX
+evaluator's DTW at the benchmark's [4096, 24, 24], with each
+rows-a-lane variant, [512, 64, 64] and [1, 300, 280]), prints each
+kernel's cluster size, registers and spills, milliseconds, time per
+frame, bound and share of the bound, times the previous designs of
+the banded Viterbi and the DTW against this checkout's in turns where
+their sources sit under ``build/ab_previous/`` (kept out of git),
+checks the processors against ``tests/data/golden_real.npz`` and
+``tests/kaldi_oracle.py``, and drives the port's paths over a
 generated corpus of 256 utterances (4 s and 6 s, 16 speakers):
 
 - the MFCC slice, ``extract_features`` with the default MFCC + Kaldi
@@ -168,11 +171,16 @@ def kernel_device_ms(fn, repeats, kernel, attempts=3):
 
     fn()
     torch.cuda.synchronize()
+    marker = torch.zeros(1, device='cuda')
     for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # a kernel of another name opens and closes the window: the
+            # profiler has dropped the record of a window's first launch
+            marker.add_(1)
             for _ in range(repeats):
                 fn()
+            marker.add_(1)
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and kernel in e.key]
@@ -211,17 +219,66 @@ PEAK_FLOPS_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 
 
+#: the previous designs' sources of the banded Viterbi and the DTW, for
+#: their A/B against this checkout's (kept out of git; the A/B is
+#: skipped where they are absent)
+AB_SOURCES = os.path.join(HERE, 'build', 'ab_previous')
+
+
+def kernel_resources(log):
+    """ptxas's (registers, spill stores, spill loads) by kernel
+    instantiation in an nvcc log, e.g. 'viterbi_forward<7>',
+    'banded_viterbi<3,11>' (states a thread, halfwidth held in
+    registers or 0), 'dtw_staged<1,1>' (rows a lane, lane 0 reading the
+    row above from an idle lane), 'dtw_strip', and the previous
+    designs' 'banded_viterbi' and 'dtw'."""
+    resources = {}
+    current, spills = None, (0, 0)
+    for line in log.splitlines():
+        entry = re.search(
+            r'(viterbi_(?:forward|backtrace))_kernelILi(\d+)E', line)
+        banded = re.search(r'banded_viterbi_kernelILi(\d+)ELi(\d+)E', line)
+        staged = re.search(r'dtw_kernel_stagedILi(\d+)ELb([01])E', line)
+        if entry:
+            current = f'{entry.group(1)}<{entry.group(2)}>'
+        elif banded:
+            current = f'banded_viterbi<{banded.group(1)},{banded.group(2)}>'
+        elif 'banded_viterbi_kernel' in line:
+            current = 'banded_viterbi'
+        elif staged:
+            current = f'dtw_staged<{staged.group(1)},{staged.group(2)}>'
+        elif 'dtw_kernel_strip' in line:
+            current = 'dtw_strip'
+        elif 'dtw_kernel' in line:
+            current = 'dtw'
+        spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                          r'loads', line)
+        if spill:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+        used = re.search(r'Used (\d+) registers', line)
+        if used and current:
+            resources[current] = (int(used.group(1)),) + spills
+            current = None
+    return resources
+
+
 def build_kernels():
     """Build csrc/viterbi.cu, csrc/banded_viterbi.cu and csrc/dtw.cu
-    afresh, one nvcc for each source, started together; returns ptxas's
-    (registers, spill stores, spill loads) by kernel instantiation, e.g.
-    'viterbi_forward<7>', 'banded_viterbi' or 'dtw'."""
+    afresh, and the previous sources under AB_SOURCES where present, one
+    nvcc for each source, started together; returns ptxas's (registers,
+    spill stores, spill loads) by kernel instantiation of this checkout
+    (:func:`kernel_resources`) and, under 'previous', those of the
+    previous designs and their library paths (or None)."""
     import concurrent.futures
 
     from shennong_tpu_torch.ops import cuda_viterbi, dtw, viterbi
 
     start = time.perf_counter()
-    sources = (cuda_viterbi._SOURCE, viterbi._SOURCE, dtw._SOURCE)
+    sources = [cuda_viterbi._SOURCE, viterbi._SOURCE, dtw._SOURCE]
+    old = [os.path.join(AB_SOURCES, name)
+           for name in ('banded_viterbi.cu', 'dtw.cu')]
+    if all(os.path.isfile(path) for path in old):
+        sources += old
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(
             lambda source: cuda_viterbi.build(source, fresh=True), sources))
@@ -232,30 +289,28 @@ def build_kernels():
     say('build', ', '.join(os.path.relpath(path, HERE) for path, _ in built)
         + f' in {seconds:.2f} s (one nvcc each, in parallel)')
     resources = {}
-    for _, log in built:
-        current, spills = None, (0, 0)
-        for line in log.splitlines():
-            entry = re.search(
-                r'(viterbi_(?:forward|backtrace))_kernelILi(\d+)E', line)
-            if entry:
-                current = f'{entry.group(1)}<{entry.group(2)}>'
-            elif 'banded_viterbi_kernel' in line:
-                current = 'banded_viterbi'
-            elif 'dtw_kernel' in line:
-                current = 'dtw'
-            spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
-                              r'loads', line)
-            if spill:
-                spills = (int(spill.group(1)), int(spill.group(2)))
-            used = re.search(r'Used (\d+) registers', line)
-            if used and current:
-                resources[current] = (int(used.group(1)),) + spills
-                current = None
-    for name in ('banded_viterbi', 'dtw'):
-        check(name in resources, f'no ptxas resources for {name}_kernel')
-    for name, (registers, stores, loads) in sorted(resources.items()):
+    for _, log in built[:3]:
+        resources.update(kernel_resources(log))
+    for name in ('banded_viterbi<3,11>', 'dtw_staged<1,1>', 'dtw_strip'):
+        check(name in resources, f'no ptxas resources for {name}')
+    resources['previous'] = None
+    if len(built) > 3:
+        resources['previous'] = {'libraries': [path for path, _ in built[3:]]}
+        for _, log in built[3:]:
+            resources['previous'].update(kernel_resources(log))
+    for name, value in sorted(
+            (k, v) for k, v in resources.items() if k != 'previous'):
+        registers, stores, loads = value
         say('build', f'ptxas {name}: {registers} registers, spill stores '
             f'{stores} B, spill loads {loads} B')
+    if resources['previous']:
+        for name in ('banded_viterbi', 'dtw'):
+            registers, stores, loads = resources['previous'][name]
+            say('build', f'ptxas previous {name}: {registers} registers, spill '
+                f'stores {stores} B, spill loads {loads} B')
+    else:
+        say('build', f'no previous sources under {AB_SOURCES}: the A/B '
+            'against them is skipped')
     return resources
 
 
@@ -2084,13 +2139,35 @@ def banded_bound(shape, bounds):
     return by_bytes * 1e3, 'bytes'
 
 
+def banded_inputs(rng, shape):
+    """Observations of ``shape`` = (rows, frames, states) along argmax
+    tracks: a wandering pitch, jumps, a plateau of ties (row 0), and
+    one row of random bins; on the card."""
+    rows, frames, states = shape
+    obs = np.cumsum(rng.randint(-3, 4, (rows, frames)), axis=1) + states // 2
+    obs[-1] = rng.randint(0, states, frames)
+    obs[0, 100:600] = obs[0, 100]
+    return torch.as_tensor(np.clip(obs, 0, states - 1).astype(np.int32),
+                           device='cuda')
+
+
+#: states a thread of the banded Viterbi's variants (its default at 360
+#: states is 3: four warps a row)
+BANDED_VARIANTS = (1, 2, 3, 4)
+
+
 def banded_kernel_phase(resources):
     """The banded Viterbi kernel against its plain version on the card,
     at the CREPE slice's decode shape [33, 490, 360], at [16, 1024, 360]
     (rows of 1 frame, partial and full lengths) and at a chunk's [1,
-    8192, 360]: the paths bit-equal, and again over repeated launches.
-    Timed at every shape (CUDA events). Returns (max-abs error, times
-    at the slice's shape)."""
+    8192, 360] (back-pointer tiles spilled to device memory): the paths
+    bit-equal, and again over repeated launches. Timed at every shape:
+    the kernel's device time a launch (profiler), a wrapper call and the
+    plain version (CUDA events). At the slice's shape, every variant of
+    BANDED_VARIANTS bit-equal and timed; at the slice's and the chunk's
+    shapes, the forward alone against the whole kernel (the argmax and
+    backtrace apart). Returns (max-abs error, times at the slice's
+    shape)."""
     from shennong_tpu_torch.ops import viterbi
 
     phase = 'banded kernel'
@@ -2098,6 +2175,7 @@ def banded_kernel_phase(resources):
     log_start_t = torch.as_tensor(log_start, dtype=torch.float32,
                                   device='cuda')
     band_t = torch.as_tensor(band, dtype=torch.float32, device='cuda')
+    weights = viterbi._weights32(uniform, self_w)
     rng = np.random.RandomState(6)
     error, timed = 0.0, None
     for shape, bounds, plain_repeats in (
@@ -2107,13 +2185,8 @@ def banded_kernel_phase(resources):
             ((16, 1024, 360), [1024] * 6 + [1, 1, 2, 700, 1023, 300, 64,
                                             1024, 5, 900], 2),
             ((1, 8192, 360), [8192], 1)):
-        rows, frames, _ = shape
-        # argmax tracks: a wandering pitch, jumps, a plateau of ties
-        obs = np.cumsum(rng.randint(-3, 4, (rows, frames)), axis=1) + 180
-        obs[-1] = rng.randint(0, 360, frames)
-        obs[0, 100:600] = obs[0, 100]
-        obs = torch.as_tensor(np.clip(obs, 0, 359).astype(np.int32),
-                              device='cuda')
+        rows, frames, states = shape
+        obs = banded_inputs(rng, shape)
         counts = torch.tensor(bounds, dtype=torch.int32, device='cuda')
 
         def kernel():
@@ -2126,6 +2199,12 @@ def banded_kernel_phase(resources):
                 log_start_t, band_t, uniform, self_w, obs, counts,
                 BANDED_HALFWIDTH)
 
+        def variant(states_per_thread=0, forward_only=False):
+            out = torch.empty_like(obs)
+            viterbi.launch_banded(log_start_t, band_t, *weights, obs, counts,
+                                  out, states_per_thread, forward_only)
+            return out
+
         paths, reference = kernel(), plain()
         torch.cuda.synchronize()
         check(torch.equal(paths, reference),
@@ -2135,18 +2214,48 @@ def banded_kernel_phase(resources):
         for _ in range(3):
             check(torch.equal(kernel(), paths),
                   f'banded Viterbi paths changed between launches at {shape}')
-        ms = cuda_ms(kernel, 10)
+        ms = kernel_device_ms(variant, 20, 'banded_viterbi_kernel')
+        call_ms = cuda_ms(kernel, 10)
         plain_ms = cuda_ms(plain, plain_repeats)
         bound_ms, bound_by = banded_bound(shape, bounds)
-        registers, stores, loads = resources['banded_viterbi']
+        plan = viterbi.banded_plan(rows, frames, states, 2 * BANDED_HALFWIDTH + 1)
+        kind = f"banded_viterbi<{plan['states']},{BANDED_HALFWIDTH}>"
+        registers, stores, loads = resources[kind]
+        decoded = sum(min(max(n, 1), frames) for n in bounds) / rows
         say(phase, f'{shape}, nframes from {min(bounds)} to {max(bounds)}: '
             f'paths bit-equal to the plain version, repeated launches '
-            f'equal; kernel {ms:.3f} ms ({ms * 1e3 / frames:.3f} us per '
-            f'frame), plain {plain_ms:.3f} ms (CUDA events); {registers} '
-            f'registers, spills {stores}/{loads} B; bound {bound_ms:.5f} ms '
-            f'by {bound_by}, share of bound {bound_ms / ms:.5f}')
-        if timed is None:
+            f'equal; kernel {ms:.4f} ms (profiler, device time a launch; '
+            f'{ms * 1e3 / frames:.4f} us a padded frame, '
+            f'{ms * 1e3 / decoded:.4f} us a decoded frame), a call '
+            f'{call_ms:.4f} ms and plain {plain_ms:.3f} ms (CUDA events); '
+            f"{kind}, {plan['threads']} threads, back-pointer tiles of "
+            f"{plan['tile']} frames, {plan['smem']} B shared, spill "
+            f"{plan['spill']} B; {registers} registers, spills "
+            f'{stores}/{loads} B; bound {bound_ms:.5f} ms by {bound_by}, '
+            f'share of bound {bound_ms / ms:.5f}')
+        if shape[1] == 490:
             timed = (ms, plain_ms, bound_ms, bound_by)
+            for k in BANDED_VARIANTS:
+                check(torch.equal(variant(k), paths),
+                      f'banded Viterbi with {k} states a thread differs')
+                vms = kernel_device_ms(lambda: variant(k), 20,
+                                       'banded_viterbi_kernel')
+                registers, stores, loads = resources[
+                    f'banded_viterbi<{k},{BANDED_HALFWIDTH}>']
+                threads = viterbi.banded_plan(
+                    rows, frames, states, 2 * BANDED_HALFWIDTH + 1, k)['threads']
+                say(phase, f'variant {k} states a thread ({threads} threads, '
+                    f'{threads // 32} warps) at {shape}: paths bit-equal; '
+                    f'{vms:.4f} ms ({vms * 1e3 / decoded:.4f} us a decoded '
+                    f'frame; profiler); {registers} registers, spills '
+                    f'{stores}/{loads} B')
+        if shape[1] in (490, 8192):
+            forward = kernel_device_ms(lambda: variant(0, True), 20,
+                                       'banded_viterbi_kernel')
+            say(phase, f'split at {shape}: forward alone {forward:.4f} ms '
+                f'({forward * 1e3 / decoded:.4f} us a decoded frame), the '
+                f'argmax and backtrace {ms - forward:.4f} ms of the '
+                f'kernel\'s {ms:.4f} (profiler)')
     return error, timed
 
 
@@ -2717,9 +2826,13 @@ def dtw_kernel_phase(resources):
                   f'dtw: {label} at {shape} changed between launches')
         ms = kernel_device_ms(kernel, 20, 'dtw_kernel')
         call_ms = cuda_ms(kernel, 20)
+        # pairwise_distances' call: the counts checked on the host before
+        unchecked_ms = cuda_ms(
+            lambda: dtw.divergences_unchecked(costs, nx, ny), 20)
         plain_ms = cuda_ms(plain, 3)
         bound_ms, bound_by = dtw_bound(nx.cpu().numpy(), ny.cpu().numpy())
-        registers, stores, loads = resources['dtw']
+        kind = dtw_instantiation(*shape[1:])
+        registers, stores, loads = resources[kind]
         say(phase, f'{label} {shape}, counts {int(nx.min())}-{int(nx.max())}'
             f' x {int(ny.min())}-{int(ny.max())}: '
             + ('equal to' if exact else
@@ -2727,15 +2840,170 @@ def dtw_kernel_phase(resources):
                f'max-abs {tie_gap:.3g}) from')
             + f' the plain version, repeated launches equal; kernel '
             f'{ms:.4f} ms (profiler, device time a launch), a call '
-            f'{call_ms:.4f} ms and plain {plain_ms:.3f} ms (CUDA events, '
-            f'costs warm in L2); {registers} registers, spills '
-            f'{stores}/{loads} B; bound {bound_ms:.5f} ms by {bound_by}, '
+            f'{call_ms:.4f} ms (counts checked on the card), an unchecked '
+            f'call {unchecked_ms:.4f} ms and plain {plain_ms:.3f} ms (CUDA '
+            f'events, costs warm in L2); {kind}, {registers} registers, '
+            f'spills {stores}/{loads} B; bound {bound_ms:.5f} ms by {bound_by}, '
             f'share of bound {bound_ms / ms:.4f}')
         if timed is None:
             timed = (ms, plain_ms, bound_ms, bound_by)
+            dtw_variants(phase, costs, nx, ny, div, resources)
     say(phase, f'phase time {time.perf_counter() - begin:.1f} s')
     return error, timed, {'near_ties': near_ties,
                           'near_tie_max_abs_err': near_tie_gap}
+
+
+#: rows a lane of the staged DTW kernel's variants (its default is 1:
+#: one pair of 24 rows a warp)
+DTW_VARIANTS = (1, 2, 3, 4)
+
+
+def dtw_variants(phase, costs, nx, ny, div, resources):
+    """Each variant of DTW_VARIANTS at the benchmark's shape: the same
+    bits as the default launch ``div``, and its device time a launch
+    (profiler)."""
+    from shennong_tpu_torch.ops import dtw
+
+    shape = tuple(costs.shape)
+    for rows in DTW_VARIANTS:
+        out = torch.empty_like(div)
+
+        def launch():
+            dtw.launch_dtw(costs, nx, ny, out, rows)
+
+        launch()
+        check(torch.equal(out, div),
+              f'dtw with {rows} rows a lane differs from the default')
+        ms = kernel_device_ms(launch, 20, 'dtw_kernel')
+        registers, stores, loads = resources[
+            dtw_instantiation(*shape[1:], rows)]
+        say(phase, f'variant {rows} rows a lane ({32 // _segment(24, rows)} '
+            f'pairs a warp) at {shape}: the default\'s bits; {ms:.4f} ms '
+            f'(profiler); {registers} registers, spills {stores}/{loads} B')
+
+
+def dtw_instantiation(rows, cols, requested=0):
+    """The DTW kernel the wrapper launches for [rows, cols] pairs with
+    ``requested`` rows a lane (0: the default), as kernel_resources
+    names it."""
+    from shennong_tpu_torch.ops import dtw
+
+    per_lane = dtw.rows_per_lane(rows, cols, requested)
+    if not per_lane:
+        return 'dtw_strip'
+    walked = min(rows, cols)
+    idle = per_lane == 1 and _segment(walked, 1) == 32 and walked < 32
+    return f'dtw_staged<{per_lane},{int(idle)}>'
+
+
+def _segment(rows, per_lane):
+    """Lanes of a pair in the staged DTW kernel: the power of two that
+    covers ``rows`` rows at ``per_lane`` a lane."""
+    seg = 1
+    while seg * per_lane < rows:
+        seg *= 2
+    return seg
+
+
+# ---------------------------------- the previous designs against this one
+
+def ab_phase(resources):
+    """The previous designs of the banded Viterbi and the DTW against
+    this checkout's, in one process, in turns (previous, new, new,
+    previous), at
+    the CREPE slice's [33, 490, 360] and the ABX benchmark's [4096, 24,
+    24]: the same outputs (paths equal; divergences the same bits, both
+    adding cell by cell), and each turn's device time a launch
+    (profiler). Returns {name: (previous ms, new ms)}, or None without
+    the previous sources (AB_SOURCES, kept out of git)."""
+    from shennong_tpu_torch.eval import abx
+    from shennong_tpu_torch.ops import dtw, viterbi
+
+    phase = 'a/b'
+    if not resources['previous']:
+        say(phase, f'skipped: no previous sources under {AB_SOURCES}; the '
+            'times compare only with the spreads recorded in PERF.md')
+        return None
+    banded_path, dtw_path = resources['previous']['libraries']
+    pointer, size = ctypes.c_void_p, ctypes.c_int
+    old_banded = ctypes.CDLL(banded_path)
+    old_banded.shennong_banded_viterbi.restype = ctypes.c_int
+    old_banded.shennong_banded_viterbi.argtypes = [
+        pointer, pointer, pointer, pointer, ctypes.c_float, ctypes.c_float,
+        size, size, size, size, pointer, pointer, pointer]
+    old_dtw = ctypes.CDLL(dtw_path)
+    old_dtw.shennong_dtw.restype = ctypes.c_int
+    old_dtw.shennong_dtw.argtypes = [
+        pointer, pointer, pointer, size, size, size, pointer, pointer,
+        pointer, pointer]
+    stream = torch.cuda.current_stream().cuda_stream
+    results = {}
+
+    log_start, band, uniform, self_w = banded_prior()
+    log_start_t = torch.as_tensor(log_start, dtype=torch.float32,
+                                  device='cuda')
+    band_t = torch.as_tensor(band, dtype=torch.float32, device='cuda')
+    weights = viterbi._weights32(uniform, self_w)
+    shape = (33, 490, 360)
+    obs = banded_inputs(np.random.RandomState(6), shape)
+    counts = torch.full((shape[0],), 401, dtype=torch.int32, device='cuda')
+    back = torch.empty(shape, dtype=torch.int8, device='cuda')
+    old_paths, new_paths = torch.empty_like(obs), torch.empty_like(obs)
+
+    def old_k1():
+        code = old_banded.shennong_banded_viterbi(
+            obs.data_ptr(), counts.data_ptr(), log_start_t.data_ptr(),
+            band_t.data_ptr(), *weights, *shape, band_t.shape[1],
+            back.data_ptr(), old_paths.data_ptr(), stream)
+        check(code == 0, f'previous banded Viterbi launch: CUDA error {code}')
+
+    def new_k1():
+        viterbi.launch_banded(log_start_t, band_t, *weights, obs, counts,
+                              new_paths)
+
+    rng = np.random.RandomState(7)
+    pairs = (4096, 24, 24)
+    x = torch.from_numpy(rng.randn(pairs[0], pairs[1], 13).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rng.randn(pairs[0], pairs[2], 13).astype(
+        np.float32)).cuda()
+    costs = abx._frame_costs(x, y, 'cosine').contiguous()
+    nx = torch.full((pairs[0],), pairs[1], dtype=torch.int32, device='cuda')
+    ny = torch.full((pairs[0],), pairs[2], dtype=torch.int32, device='cuda')
+    old_div, new_div = (torch.empty(pairs[0], device='cuda')
+                        for _ in range(2))
+    empty = torch.empty(0, device='cuda')
+
+    def old_k2():
+        code = old_dtw.shennong_dtw(
+            costs.data_ptr(), nx.data_ptr(), ny.data_ptr(), *pairs,
+            empty.data_ptr(), empty.data_ptr(), old_div.data_ptr(), stream)
+        check(code == 0, f'previous dtw launch: CUDA error {code}')
+
+    def new_k2():
+        dtw.launch_dtw(costs, nx, ny, new_div)
+
+    for name, where, old, new, kernel, same in (
+            ('banded_viterbi', shape, old_k1, new_k1, 'banded_viterbi_kernel',
+             lambda: torch.equal(old_paths, new_paths)),
+            ('dtw', pairs, old_k2, new_k2, 'dtw_kernel',
+             lambda: torch.equal(old_div, new_div))):
+        old()
+        new()
+        torch.cuda.synchronize()
+        check(same(), f'{name}: the previous design and this checkout '
+              f'disagree at {where}')
+        turns = [(label, kernel_device_ms(fn, 20, kernel))
+                 for label, fn in (('previous', old), ('new', new),
+                                   ('new', new), ('previous', old))]
+        before = (turns[0][1] + turns[3][1]) / 2
+        after = (turns[1][1] + turns[2][1]) / 2
+        results[name] = (before, after)
+        say(phase, f'{name} at {where}, outputs equal; turns '
+            + ', '.join(f'{label} {ms:.4f}' for label, ms in turns)
+            + f' ms (profiler, device time a launch); previous {before:.4f} '
+            f'ms, new {after:.4f} ms, {before / after:.2f}x')
+    return results
 
 
 # ------------------------------------------------------- ABX: the benchmark
@@ -3372,6 +3640,7 @@ def main():
     errors['banded_viterbi'], times['banded_viterbi'] = banded_kernel_phase(
         resources)
     errors['dtw'], times['dtw'], dtw_ties = dtw_kernel_phase(resources)
+    ab_phase(resources)
     goldens()
     workdir = os.path.join(HERE, 'build', 'chip_smoke_corpus')
     launches = {'viterbi_forward': 0, 'viterbi_backtrace': 0}

@@ -111,6 +111,9 @@ def pairwise_distances(segments, metric='cosine', batch=512, *, device):
     for index, seg in enumerate(segments):
         padded[index, :seg.shape[0]] = seg
 
+    # every count lies in [1, max] by construction; checked once here on
+    # the host, so no batch waits for the device to check its counts
+    dtw.check_counts(lengths, lengths, padded.shape[1], padded.shape[1])
     # the segment store and the pair indices cross to the device once;
     # every batch gathers its pairs there, and the divergences come
     # back in one copy at the end
@@ -123,10 +126,11 @@ def pairwise_distances(segments, metric='cosine', batch=512, *, device):
     for start in range(0, len(left), batch):
         li = left_dev[start:start + batch]
         ri = right_dev[start:start + batch]
-        parts.append(dtw_divergences(
-            store.index_select(0, li), store_lengths.index_select(0, li),
-            store.index_select(0, ri), store_lengths.index_select(0, ri),
-            metric=metric))
+        parts.append(dtw.divergences_unchecked(
+            _frame_costs(store.index_select(0, li),
+                         store.index_select(0, ri), metric),
+            store_lengths.index_select(0, li),
+            store_lengths.index_select(0, ri)))
     distances = np.zeros((count, count), np.float64)
     if parts:
         distances[left, right] = torch.cat(parts).cpu().numpy()

@@ -15,7 +15,11 @@ tensor takes :func:`dtw_divergences_plain`, the JAX package's row
 formulation written with PyTorch tensors; a CUDA tensor launches
 ``csrc/dtw.cu`` (built with ``nvcc`` at first use into ``_build/``,
 bound through a plain C interface with ctypes) or raises. Every kernel
-launch adds one to :data:`LAUNCHES`.
+launch adds one to :data:`LAUNCHES`. It checks the frame counts, which
+makes the host wait for the card when they lie there;
+:func:`divergences_unchecked` is the same dispatch for counts a caller
+has already checked on the host (``eval.abx.pairwise_distances``), and
+never waits.
 
 The two add in different orders (the plain version through row sums,
 the kernel cell by cell), so on real-valued costs they differ by a few
@@ -34,11 +38,6 @@ import torch.nn.functional as F
 _SOURCE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     'csrc', 'dtw.cu')
-
-#: rows of a pair one kernel strip covers (one warp, a row per lane):
-#: pairs with more rows pass each strip's last row to the next through
-#: a global scratch row
-STRIP_ROWS = 32
 
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES = {'dtw': 0}
@@ -78,10 +77,9 @@ def _cumulative_lexmin(cost, length):
     return cost, length
 
 
-def _counts(nx, ny, rows, cols, batch, device):
-    """Both sides' frame counts as int32 tensors on ``device``, checked
-    to lie in [1, rows] and [1, cols] (one check for both: a CUDA
-    tensor waits for the device once)."""
+def _as_counts(nx, ny, batch, device):
+    """Both sides' frame counts as contiguous int32 tensors on
+    ``device``, of shape (batch,)."""
     nx = torch.as_tensor(nx, device=device).to(torch.int32).contiguous()
     ny = torch.as_tensor(ny, device=device).to(torch.int32).contiguous()
     for counts in (nx, ny):
@@ -89,11 +87,17 @@ def _counts(nx, ny, rows, cols, batch, device):
             raise ValueError(
                 f'frame counts have shape {tuple(counts.shape)}, expected '
                 f'({batch},)')
+    return nx, ny
+
+
+def check_counts(nx, ny, rows, cols):
+    """Raise ValueError unless every count of ``nx`` lies in [1, rows]
+    and every count of ``ny`` in [1, cols]. One test for both: counts
+    on the card make the host wait for the device once."""
     outside = ((nx < 1) | (nx > rows)).any() | ((ny < 1) | (ny > cols)).any()
     if bool(outside):
         raise ValueError(
             f'frame counts must lie in [1, {rows}] and [1, {cols}]')
-    return nx, ny
 
 
 def dtw_divergences_plain(costs, nx, ny):
@@ -105,7 +109,8 @@ def dtw_divergences_plain(costs, nx, ny):
     before``. Lengths are float32, as there."""
     bsz, rows, cols = costs.shape
     device = costs.device
-    nx, ny = _counts(nx, ny, rows, cols, bsz, device)
+    nx, ny = _as_counts(nx, ny, bsz, device)
+    check_counts(nx, ny, rows, cols)
     col = torch.arange(cols, device=device, dtype=torch.float32)[None, :]
     end_col = (ny - 1).to(torch.int64)[:, None]
 
@@ -142,12 +147,84 @@ def _load():
             pointer, size = ctypes.c_void_p, ctypes.c_int
             lib.shennong_dtw.restype = ctypes.c_int
             lib.shennong_dtw.argtypes = [
-                pointer, pointer, pointer, size, size, size, pointer,
+                pointer, pointer, pointer, size, size, size, size, pointer,
                 pointer, pointer, pointer]
+            lib.shennong_dtw_rows_per_lane.restype = ctypes.c_int
+            lib.shennong_dtw_rows_per_lane.argtypes = [size, size, size]
             lib.shennong_dtw_error_string.restype = ctypes.c_char_p
             lib.shennong_dtw_error_string.argtypes = [ctypes.c_int]
             _library = lib
     return _library
+
+
+def rows_per_lane(rows, cols, requested=0):
+    """The rows of a pair a lane of the kernel holds for [rows, cols]
+    pairs (``requested``, or the kernel's default for 0), or 0 when
+    such pairs take the strip kernel (more than 128 rows on the smaller
+    side, or a pair too large to stage in shared memory)."""
+    return _load().shennong_dtw_rows_per_lane(rows, cols, requested)
+
+
+def launch_dtw(costs, nx, ny, div, requested=0):
+    """One launch of the kernel on contiguous CUDA tensors (``costs``
+    [B, Ta, Tb] float32, ``nx``, ``ny`` [B] int32 in range, ``div``
+    [B] float32), with ``requested`` rows a lane (0: the default).
+    Counts nothing: :func:`dtw_divergences` counts its launches."""
+    lib = _load()
+    bsz, rows, cols = costs.shape
+    device = costs.device
+    # the strip kernel passes each strip's last row to the next through
+    # this scratch, two rows a pair (strips alternate)
+    strips = rows_per_lane(rows, cols, requested) == 0
+    edge_rows = bsz if strips else 0
+    edge_cost = torch.empty((edge_rows, 2, cols), dtype=torch.float32,
+                            device=device)
+    edge_len = torch.empty((edge_rows, 2, cols), dtype=torch.int32,
+                           device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.shennong_dtw(
+            costs.data_ptr(), nx.data_ptr(), ny.data_ptr(), bsz, rows, cols,
+            requested, edge_cost.data_ptr() if strips else None,
+            edge_len.data_ptr() if strips else None, div.data_ptr(), stream)
+    if code != 0:
+        raise RuntimeError(
+            f'dtw kernel launch failed: CUDA error {code} '
+            f'({lib.shennong_dtw_error_string(code).decode()})')
+
+
+def _shape(costs):
+    """(B, Ta, Tb) of a valid costs tensor, or ValueError."""
+    if costs.dtype != torch.float32 or costs.ndim != 3:
+        raise ValueError(
+            f'costs must be [B, Ta, Tb] float32, it is {costs.dtype} of '
+            f'shape {tuple(costs.shape)}')
+    bsz, rows, cols = costs.shape
+    if bsz and (rows == 0 or cols == 0):
+        raise ValueError(
+            f'costs of shape {tuple(costs.shape)} hold no frame')
+    return bsz, rows, cols
+
+
+def divergences_unchecked(costs, nx, ny):
+    """:func:`dtw_divergences` for counts the caller has already held
+    to [1, Ta] and [1, Tb] (``nx``, ``ny`` int32 tensors [B] on the
+    device of ``costs``): no test of the counts, so a CUDA call never
+    waits for the device. A count outside its range gives undefined
+    divergences on the card."""
+    bsz, rows, cols = _shape(costs)
+    device = costs.device
+    if bsz == 0:
+        return torch.zeros(0, dtype=torch.float32, device=device)
+    if device.type == 'cpu':
+        return dtw_divergences_plain(costs, nx, ny)
+    if device.type != 'cuda':
+        raise ValueError(f'no DTW kernel for device {device}')
+    nx, ny = _as_counts(nx, ny, bsz, device)
+    div = torch.empty(bsz, dtype=torch.float32, device=device)
+    launch_dtw(costs.contiguous(), nx, ny, div)
+    LAUNCHES['dtw'] += 1
+    return div
 
 
 def dtw_divergences(costs, nx, ny):
@@ -169,43 +246,15 @@ def dtw_divergences(costs, nx, ny):
         shortest path.
 
     A CPU tensor takes :func:`dtw_divergences_plain`; a CUDA tensor
-    launches ``csrc/dtw.cu`` or raises.
+    launches ``csrc/dtw.cu`` or raises. Counts on the card are checked
+    there, which makes the host wait for the device once a call
+    (:func:`divergences_unchecked` skips the check for counts checked
+    on the host).
     """
-    if costs.dtype != torch.float32 or costs.ndim != 3:
-        raise ValueError(
-            f'costs must be [B, Ta, Tb] float32, it is {costs.dtype} of '
-            f'shape {tuple(costs.shape)}')
-    bsz, rows, cols = costs.shape
+    bsz, rows, cols = _shape(costs)
     device = costs.device
-    if bsz == 0:
-        return torch.zeros(0, dtype=torch.float32, device=device)
-    if rows == 0 or cols == 0:
-        raise ValueError(
-            f'costs of shape {tuple(costs.shape)} hold no frame')
-    if device.type == 'cpu':
-        return dtw_divergences_plain(costs, nx, ny)
-    if device.type != 'cuda':
+    if bsz and device.type not in ('cpu', 'cuda'):
         raise ValueError(f'no DTW kernel for device {device}')
-    nx, ny = _counts(nx, ny, rows, cols, bsz, device)
-    lib = _load()
-    costs = costs.contiguous()
-    # the last row of each strip passes to the next through this
-    # scratch, two rows a pair (strips alternate); one strip needs none
-    edge_rows = bsz if rows > STRIP_ROWS else 0
-    edge_cost = torch.empty((edge_rows, 2, cols), dtype=torch.float32,
-                            device=device)
-    edge_len = torch.empty((edge_rows, 2, cols), dtype=torch.int32,
-                           device=device)
-    div = torch.empty(bsz, dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.shennong_dtw(
-            costs.data_ptr(), nx.data_ptr(), ny.data_ptr(), bsz, rows, cols,
-            edge_cost.data_ptr(), edge_len.data_ptr(), div.data_ptr(),
-            stream)
-    if code != 0:
-        raise RuntimeError(
-            f'dtw kernel launch failed: CUDA error {code} '
-            f'({lib.shennong_dtw_error_string(code).decode()})')
-    LAUNCHES['dtw'] += 1
-    return div
+    if bsz:
+        check_counts(*_as_counts(nx, ny, bsz, device), rows, cols)
+    return divergences_unchecked(costs, nx, ny)

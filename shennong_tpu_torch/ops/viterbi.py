@@ -250,14 +250,70 @@ def _load():
             lib.shennong_banded_viterbi.restype = ctypes.c_int
             lib.shennong_banded_viterbi.argtypes = [
                 pointer, pointer, pointer, pointer, ctypes.c_float,
-                ctypes.c_float, size, size, size, size, pointer, pointer,
-                pointer]
-            lib.shennong_banded_viterbi_smem.restype = ctypes.c_size_t
-            lib.shennong_banded_viterbi_smem.argtypes = [size, size]
+                ctypes.c_float, size, size, size, size, size, pointer,
+                pointer, size, pointer]
+            lib.shennong_banded_viterbi_plan.restype = ctypes.c_int
+            lib.shennong_banded_viterbi_plan.argtypes = [
+                size, size, size, size, size, ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_size_t),
+                ctypes.POINTER(ctypes.c_size_t)]
             lib.shennong_banded_error_string.restype = ctypes.c_char_p
             lib.shennong_banded_error_string.argtypes = [ctypes.c_int]
             _library = lib
     return _library
+
+
+def banded_plan(bsz, maxframes, nstates, width, states_per_thread=0):
+    """The kernel's launch for ``bsz`` rows of ``maxframes`` frames,
+    ``nstates`` states and a band of ``width``, with
+    ``states_per_thread`` states a thread (0: the kernel's default): a
+    dict of ``states`` (a thread's), ``threads`` (a block's), ``tile``
+    (frames of a back-pointer tile in shared memory), ``smem`` (bytes)
+    and ``spill`` (bytes of device scratch for the tiles a long row
+    moves out of shared memory). Raises ValueError for a shape the
+    kernel does not take."""
+    lib = _load()
+    states, threads, tile = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    smem, spill = ctypes.c_size_t(), ctypes.c_size_t()
+    code = lib.shennong_banded_viterbi_plan(
+        bsz, maxframes, nstates, width, states_per_thread,
+        ctypes.byref(states), ctypes.byref(threads), ctypes.byref(tile),
+        ctypes.byref(smem), ctypes.byref(spill))
+    if code != 0:
+        raise ValueError(
+            f'the banded Viterbi kernel takes no launch of {nstates} states, '
+            f'a band of {width} and {states_per_thread} states a thread')
+    return {'states': states.value, 'threads': threads.value,
+            'tile': tile.value, 'smem': smem.value, 'spill': spill.value}
+
+
+def launch_banded(log_start, band, uniform, gain, observations, nframes,
+                  paths, states_per_thread=0, forward_only=False):
+    """One launch of the kernel on contiguous CUDA tensors (float32
+    ``log_start`` and ``band``, int32 ``observations``, ``nframes`` and
+    ``paths``) with the weights already rounded (:func:`_weights32`);
+    ``forward_only`` stops before the argmax and the backtrace (for a
+    timing split). Counts nothing: :func:`viterbi_banded_obs_batch`
+    counts its launches."""
+    lib = _load()
+    bsz, maxframes = observations.shape
+    nstates, width = band.shape
+    plan = banded_plan(bsz, maxframes, nstates, width, states_per_thread)
+    device = observations.device
+    spill = torch.empty(plan['spill'], dtype=torch.int8, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.shennong_banded_viterbi(
+            observations.data_ptr(), nframes.data_ptr(),
+            log_start.data_ptr(), band.data_ptr(), uniform, gain, bsz,
+            maxframes, nstates, width, states_per_thread,
+            spill.data_ptr() if plan['spill'] else None, paths.data_ptr(),
+            int(forward_only), stream)
+    if code != 0:
+        raise RuntimeError(
+            f'banded_viterbi kernel launch failed: CUDA error {code} '
+            f'({lib.shennong_banded_error_string(code).decode()})')
 
 
 def viterbi_banded_obs_batch(log_start, band, uniform_weight, self_weight,
@@ -313,28 +369,10 @@ def viterbi_banded_obs_batch(log_start, band, uniform_weight, self_weight,
         raise ValueError(
             f'the kernel takes at most 1024 states and a band of 127, '
             f'not {nstates} and {width}')
-    lib = _load()
-    if lib.shennong_banded_viterbi_smem(nstates, width) > 227 * 1024:
-        raise ValueError(
-            f'{nstates} states and a band of {width} exceed the shared '
-            'memory of a block')
 
     uniform, gain = _weights32(uniform_weight, self_weight)
-    observations, nframes = observations.contiguous(), nframes.contiguous()
-    log_start, band = log_start.contiguous(), band.contiguous()
-    back = torch.empty((bsz, maxframes, nstates), dtype=torch.int8,
-                       device=device)
     paths = torch.empty((bsz, maxframes), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.shennong_banded_viterbi(
-            observations.data_ptr(), nframes.data_ptr(),
-            log_start.data_ptr(), band.data_ptr(), uniform, gain, bsz,
-            maxframes, nstates, width, back.data_ptr(), paths.data_ptr(),
-            stream)
-    if code != 0:
-        raise RuntimeError(
-            f'banded_viterbi kernel launch failed: CUDA error {code} '
-            f'({lib.shennong_banded_error_string(code).decode()})')
+    launch_banded(log_start.contiguous(), band.contiguous(), uniform, gain,
+                  observations.contiguous(), nframes.contiguous(), paths)
     LAUNCHES['banded_viterbi'] += 1
     return paths

@@ -284,6 +284,41 @@ def test_dtw_wrapper_checks_its_inputs():
         torch.zeros((0, 3, 4)), counts[:0], counts[:0]).shape == (0,)
 
 
+def test_pairwise_distances_checks_counts_on_the_host(monkeypatch):
+    """pairwise_distances checks the frame counts once on its numpy copy
+    and hands every batch to the unchecked dispatch (never the checked
+    entry point, whose test of counts on the card makes the host wait);
+    the unchecked dispatch gives the checked one's divergences, and the
+    host check raises on a count outside [1, T]."""
+    rng = np.random.RandomState(5)
+    segments = [rng.randn(rng.randint(1, 12), 13) for _ in range(9)]
+    want = abx.pairwise_distances(segments, batch=5, device='cpu')
+    hosts = []
+    check = dtw.check_counts
+
+    def recording(nx, ny, rows, cols):
+        hosts.append(isinstance(nx, np.ndarray))
+        return check(nx, ny, rows, cols)
+
+    def checked(*args):
+        raise AssertionError('a batch took the checked entry point')
+
+    monkeypatch.setattr(dtw, 'check_counts', recording)
+    monkeypatch.setattr(dtw, 'dtw_divergences', checked)
+    assert np.array_equal(
+        abx.pairwise_distances(segments, batch=5, device='cpu'), want)
+    assert hosts[0] and hosts.count(True) == 1
+    monkeypatch.undo()
+    xs, nx, ys, ny = ragged_pairs([(5, 7), (11, 3), (1, 9)], 13, seed=6)
+    costs = abx._frame_costs(torch.from_numpy(xs), torch.from_numpy(ys),
+                             'cosine')
+    counts = (torch.from_numpy(nx), torch.from_numpy(ny))
+    assert torch.equal(dtw.divergences_unchecked(costs, *counts),
+                       dtw.dtw_divergences(costs, *counts))
+    with pytest.raises(ValueError, match='must lie in'):
+        dtw.check_counts(np.array([0, 3]), np.array([2, 2]), 5, 5)
+
+
 # ----------------------------------------------------- distance matrices
 
 @pytest.mark.parametrize('metric', ['cosine', 'euclidean'])

@@ -505,6 +505,16 @@ BANDED_CASES = [
     ((3, 200, 30, 11), [200, 1, 150]),
     ((2, 300, 1000, 3), [300, 299]),
     ((4, 50, 360, 63), [50, 0, 49, 25]),
+    # across the kernel's tiling: 383 and 385 states sit one below and one
+    # above 3 states a thread on four warps (3 x 128), 129 one above 1;
+    # one state; a halfwidth wider than a thread's states (8 a thread at
+    # 1024 states); rows longer than two back-pointer tiles in shared
+    # memory (385 states: tiles of 284 frames; 1024: 108)
+    ((3, 300, 383, 11), [300, 1, 299]),
+    ((2, 700, 385, 11), [700, 650]),
+    ((2, 100, 129, 11), [100, 50]),
+    ((3, 40, 1, 11), [40, 1, 0]),
+    ((2, 3000, 1024, 63), [3000, 2999]),
 ]
 
 
@@ -633,7 +643,12 @@ def test_bottleneck_network_matches_cpu(cuda_device):
 DTW_CASES = [
     ((4096, 24, 24), False), ((4096, 24, 24), True), ((7, 1, 1), True),
     ((5, 1, 40), True), ((5, 40, 1), True), ((512, 64, 64), True),
-    ((3, 33, 70), True), ((1, 300, 280), False)]
+    ((3, 33, 70), True), ((1, 300, 280), False),
+    # pairs packed into a warp: two at 24 rows (ragged from 1), four at
+    # 16, eight at 5; the transposed walk (fewer columns than rows); one
+    # staged pair a block; a pair too large to stage (strips)
+    ((100, 16, 16), True), ((64, 5, 7), True), ((33, 24, 9), True),
+    ((4, 100, 100), True), ((3, 128, 128), True)]
 
 
 @pytest.mark.parametrize('shape,ragged', DTW_CASES)
@@ -673,6 +688,75 @@ def test_dtw_kernel_matches_plain(cuda_device, shape, ragged):
     assert torch.equal(div, dtw.dtw_divergences_plain(costs, nx, ny))
     assert torch.equal(
         div.cpu(), dtw.dtw_divergences(costs.cpu(), nx.cpu(), ny.cpu()))
+
+
+@pytest.mark.parametrize('rows_per_lane', [1, 2, 3, 4])
+def test_dtw_kernel_variants_match(cuda_device, rows_per_lane):
+    """Every rows-a-lane variant of the staged DTW kernel gives the
+    default launch's bits on ragged real costs, and the plain version's
+    on integer costs."""
+    from shennong_tpu_torch.eval import abx
+    from shennong_tpu_torch.ops import dtw
+
+    rng = np.random.RandomState(rows_per_lane)
+    bsz, rows, cols = 300, 24, 24
+    nx = torch.tensor(rng.randint(1, rows + 1, bsz), dtype=torch.int32,
+                      device=cuda_device)
+    ny = torch.tensor(rng.randint(1, cols + 1, bsz), dtype=torch.int32,
+                      device=cuda_device)
+    costs = abx._frame_costs(
+        torch.from_numpy(rng.randn(bsz, rows, 13).astype(np.float32)).to(
+            cuda_device),
+        torch.from_numpy(rng.randn(bsz, cols, 13).astype(np.float32)).to(
+            cuda_device), 'cosine').contiguous()
+    integer = torch.from_numpy(rng.randint(0, 3, (bsz, rows, cols)).astype(
+        np.float32)).to(cuda_device)
+    for values, want in ((costs, dtw.dtw_divergences(costs, nx, ny)),
+                         (integer, dtw.dtw_divergences_plain(integer, nx, ny))):
+        div = torch.empty(bsz, dtype=torch.float32, device=cuda_device)
+        dtw.launch_dtw(values, nx, ny, div, rows_per_lane)
+        assert torch.equal(div, want)
+
+
+def test_pairwise_distances_never_waits_in_its_batch_loop(cuda_device):
+    """On the card, pairwise_distances synchronizes only at its ends: of
+    the calls that torch.cuda.set_sync_debug_mode('warn') reports, none
+    comes from a line of its batch loop or from the DTW wrapper, and they
+    are as many for 39 batches as for one (the uploads before the loop,
+    the one fetch after it)."""
+    import inspect
+    import warnings
+
+    from shennong_tpu_torch.eval import abx
+
+    lines, first = inspect.getsourcelines(abx.pairwise_distances)
+    loop = [first + n for n, line in enumerate(lines)
+            if 'for start in range' in line
+            or 'distances = np.zeros' in line]
+    rng = np.random.RandomState(11)
+    segments = [rng.randn(rng.randint(1, 25), 13) for _ in range(40)]
+    pairs = 40 * 39 // 2
+    abx.pairwise_distances(segments, batch=pairs, device=cuda_device)
+    places = {}
+    for batch in (pairs, 20):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                got = abx.pairwise_distances(segments, batch=batch,
+                                             device=cuda_device)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        places[batch] = [(os.path.basename(w.filename), w.lineno)
+                         for w in caught
+                         if 'called a synchronizing' in str(w.message)]
+        assert got.shape == (40, 40) and np.isfinite(got).all()
+    assert len(loop) == 2 and -(-pairs // 20) == 39
+    for found in places.values():
+        assert found, 'the fetch at the end synchronizes'
+        assert all(name == 'abx.py' and not loop[0] <= line < loop[1]
+                   for name, line in found), (loop, found)
+    assert places[20] == places[pairs]
 
 
 def test_abx_ci_matches_cpu(cuda_device):
