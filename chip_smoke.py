@@ -351,17 +351,19 @@ def bound(name, shape, bounds):
     return by_bytes * 1e3, 'bytes'
 
 
-def hold_kernels(shape, bounds, rng, errors, repeats=3):
+def hold_kernels(shape, bounds, rng, errors, repeats=3, factor=None):
     """Both kernels against their plain versions on random costs of
     ``shape``, row ``i`` holding ``bounds[i]`` frames: the forward
     history bit-equal over each row's valid frames, the lags equal, and
-    ``repeats`` more launches of each equal to the first. The max-abs
-    errors go into ``errors``; returns (cost, counts, history) for
-    timing."""
+    ``repeats`` more launches of each equal to the first. ``factor`` is
+    the inter-frame factor (None: the default pitch options'). The
+    max-abs errors go into ``errors``; returns (cost, counts, history)
+    for timing."""
     from shennong_tpu_torch.ops import cuda_viterbi
     from shennong_tpu_torch.ops.pitch import PitchOpts, inter_frame_factor
 
-    factor = inter_frame_factor(PitchOpts())
+    if factor is None:
+        factor = inter_frame_factor(PitchOpts())
     cost = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda()
     counts = torch.tensor(bounds, dtype=torch.int32, device='cuda')
     hist = cuda_viterbi.viterbi_forward(cost, counts, factor)
@@ -395,7 +397,7 @@ def hold_kernels(shape, bounds, rng, errors, repeats=3):
 
 
 def time_kernels(phase, shape, bounds, cost, counts, hist, resources,
-                 plain_repeats):
+                 plain_repeats, factor=None):
     """Kernel (and, with plain_repeats, plain) milliseconds of both
     kernels (CUDA events), each printed with its cluster size, ptxas
     resources, microseconds per frame, bound and share of the bound;
@@ -403,7 +405,8 @@ def time_kernels(phase, shape, bounds, cost, counts, hist, resources,
     from shennong_tpu_torch.ops import cuda_viterbi
     from shennong_tpu_torch.ops.pitch import PitchOpts, inter_frame_factor
 
-    factor = inter_frame_factor(PitchOpts())
+    if factor is None:
+        factor = inter_frame_factor(PitchOpts())
     launch = {
         'viterbi_forward': (cuda_viterbi.viterbi_forward,
                             cuda_viterbi.viterbi_forward_plain, cost),
@@ -689,16 +692,18 @@ def the_slice(card, entries, features):
     return launches, xrt
 
 
-def pitch_batched(utterances, device):
+def pitch_batched(utterances, device, **options):
     """Raw Kaldi pitch as the fused and stage-wise pass 1 compute it:
-    in padded length-sorted batches (one sample rate)."""
+    in padded length-sorted batches (one sample rate). ``options`` are
+    the pitch processor's (the defaults when none)."""
     from shennong_tpu_torch.processor.pitch_kaldi import KaldiPitchProcessor
 
-    raw = KaldiPitchProcessor().process_all(utterances, device=device)
+    raw = KaldiPitchProcessor(**options).process_all(
+        utterances, device=device)
     return {name: raw[name].data for name in raw}
 
 
-def pitch_per_utterance(utterances, device):
+def pitch_per_utterance(utterances, device, **options):
     """Raw Kaldi pitch as the per-utterance pass 1 computes it."""
     from shennong_tpu_torch.processor.pitch_kaldi import KaldiPitchProcessor
 
@@ -706,17 +711,22 @@ def pitch_per_utterance(utterances, device):
     for utt in utterances:
         audio = utt.load_audio()
         raw[utt.name] = KaldiPitchProcessor(
-            sample_rate=audio.sample_rate).process(audio, device=device).data
+            sample_rate=audio.sample_rate, **options).process(
+                audio, device=device).data
     return raw
 
 
-def cuda_against_cpu(config, features, utterances, raw_pitch, warps=None):
+def cuda_against_cpu(config, features, utterances, raw_pitch, warps=None,
+                     pitch_options=None):
     """``extract_features`` on the card and on the CPU with every random
     source at 0 (the energy VAD's dither too): the max-abs between the
     two, under SLICE_TOL, and the count of utterances whose pitch lags
     differ, each difference a proven tie. ``raw_pitch(utterances,
     device)`` recomputes the raw pitch as the path under test does,
-    batches included. The witness of a tie is the float64 oracle
+    batches included; ``pitch_options`` are the pitch options of
+    ``config`` that differ from the defaults (the lag grid's
+    ``min_f0``, ``max_f0``, ``delta_pitch``), for the witness. The
+    witness of a tie is the float64 oracle
     (tests/pitch_oracle.py) up to ORACLE_SECONDS of audio and the
     float64 path costs of the port's whole-signal program
     (tests/lag_ties.py) past them, where the oracle's Python loops are
@@ -731,6 +741,7 @@ def cuda_against_cpu(config, features, utterances, raw_pitch, warps=None):
     from tests.lag_ties import assert_ties
     from tests.pitch_oracle import assert_lag_decisions, process_pitch
 
+    pitch_options = pitch_options or {}
     with energy_dither_off():
         on = {device: pipeline.extract_features(
             zero_randomness(copy.deepcopy(config), features), utterances,
@@ -751,12 +762,13 @@ def cuda_against_cpu(config, features, utterances, raw_pitch, warps=None):
             if utt.duration <= ORACLE_SECONDS:
                 same = assert_lag_decisions(
                     audio.data.astype(np.float64), ours, ref,
-                    rate=audio.sample_rate)
+                    rate=audio.sample_rate, **pitch_options)
                 witness = 'the float64 oracle'
             else:
                 assert_ties(
                     audio.astype(np.int16).data, KaldiPitchProcessor(
-                        sample_rate=audio.sample_rate).options(),
+                        sample_rate=audio.sample_rate,
+                        **pitch_options).options(),
                     ours, ref, 'cpu')
                 witness = 'the float64 path costs'
                 same = np.isclose(ours[:, 1], ref[:, 1], rtol=1e-4)
@@ -786,6 +798,132 @@ def cuda_against_cpu(config, features, utterances, raw_pitch, warps=None):
               f'{diff.max()} at frame {frame}, column {column}')
         worst = max(worst, float(diff.max()))
     return worst, ties
+
+
+# ---------------------------------------------------------- pitch options
+
+#: (min_f0, max_f0, delta_pitch) over the pitch grid of
+#: tests/test_fuzz_parity.py: the options that set the Viterbi's lag
+#: count, 133 to 417
+PITCH_GRID = tuple((low, high, step) for low in (50.0, 80.0)
+                   for high in (300.0, 400.0) for step in (0.005, 0.01))
+PITCH_LAGS = [133, 162, 181, 209, 266, 323, 360, 417]
+PITCH_BATCH = 64         # utterances of the batched run: one batch
+PITCH_SINGLES = 8        # of them, also run one at a time
+
+
+def raw_against_cpu(utterances, ours, ref, options):
+    """Raw pitch of the card against the CPU's, by utterance: the lags
+    equal, with the NCCF within SLICE_TOL, or every differing lag a tie
+    proven by the float64 oracle (which holds the NCCF within 1e-3 where
+    the lags agree); returns the count of utterances with ties."""
+    from tests.pitch_oracle import assert_lag_decisions
+
+    ties = 0
+    for utt in utterances:
+        mine, cpu = ours[utt.name], ref[utt.name]
+        check(mine.shape == cpu.shape, f'{utt.name}: raw pitch shapes '
+              f'{mine.shape} and {cpu.shape}')
+        if np.array_equal(mine[:, 1], cpu[:, 1]):
+            gap = float(np.abs(mine[:, 0] - cpu[:, 0]).max(initial=0.0))
+            check(gap < SLICE_TOL, f'{utt.name}: NCCF max-abs {gap}')
+        else:
+            audio = utt.load_audio()
+            assert_lag_decisions(audio.data.astype(np.float64), mine, cpu,
+                                 rate=audio.sample_rate, **options)
+            ties += 1
+    return ties
+
+
+def pitch_options_phase(card, entries, resources, errors):
+    """Kaldi pitch at every lag count of the fuzz grid, on the card. For
+    each (min_f0, max_f0, delta_pitch) of PITCH_GRID:
+
+    1. both Viterbi kernels against their plain versions on random
+       costs [64, F, L] at the options' inter-frame factor (history
+       bit-equal, lags equal, repeated launches equal; the max-abs into
+       ``errors``), timed, with ``forward_plan``'s clusters and lags a
+       lane;
+    2. the MFCC slice with these pitch options over the first 64
+       utterances of the corpus, one batch through the fused pass 1:
+       a run whose kernel launches are counted from 0, then the card
+       against the CPU with every random source at 0
+       (:func:`cuda_against_cpu`: lags equal or proven ties, the POV
+       and the features within SLICE_TOL);
+    3. raw pitch per utterance on PITCH_SINGLES of them, against the
+       CPU (:func:`raw_against_cpu`).
+
+    Returns the Viterbi launches of step 2's counted runs."""
+    import collections
+    import functools
+
+    from shennong_tpu_torch import Utterances, pipeline
+    from shennong_tpu_torch.ops import cuda_viterbi
+    from shennong_tpu_torch.ops.pitch import (
+        inter_frame_factor, num_pitch_frames, select_lags)
+    from shennong_tpu_torch.processor.pitch_kaldi import KaldiPitchProcessor
+
+    phase = 'pitch options'
+    begin = time.perf_counter()
+    batch = Utterances(entries[:PITCH_BATCH])
+    singles = Utterances(entries[:PITCH_SINGLES])
+    rng = np.random.RandomState(1)
+    launches = collections.Counter()
+    lag_counts = []
+    for low, high, step in PITCH_GRID:
+        options = dict(min_f0=low, max_f0=high, delta_pitch=step)
+        opts = KaldiPitchProcessor(**options).options()
+        lags = len(select_lags(opts.min_f0, opts.max_f0, opts.delta_pitch))
+        factor = inter_frame_factor(opts)
+        frames = num_pitch_frames(int(DURATIONS[1] * RATE), opts)
+        shape = (PITCH_BATCH, frames, lags)
+        full = PITCH_BATCH // 2  # rows of every frame, then ragged ones
+        bounds = [frames] * full + [
+            int(n) for n in rng.randint(0, frames + 1, PITCH_BATCH - full)]
+        held = hold_kernels(shape, bounds, rng, errors, factor=factor)
+        plan = cuda_viterbi.forward_plan(PITCH_BATCH, lags, 'cuda')
+        say(phase, f'{options}: {lags} lags; forward_plan at '
+            f'[{PITCH_BATCH}, {frames}, {lags}]: cluster {plan["clusters"]}, '
+            f'{plan["threads"]} threads, {plan["lanes_lags"]} lags a lane, '
+            f'{plan["smem"]} B of shared memory; history bit-equal, lags '
+            'equal, repeated launches equal')
+        time_kernels(phase, shape, bounds, *held, resources,
+                     plain_repeats=1, factor=factor)
+        lag_counts.append(lags)
+
+        config = slice_config('mfcc')
+        config['pitch'].update(options)
+        cuda_viterbi.reset_launches()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = pipeline.extract_features(
+            copy.deepcopy(config), batch, device='cuda')
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counted = dict(cuda_viterbi.LAUNCHES)
+        for name, count in counted.items():
+            check(count > 0, f'the {phase} run at {lags} lags never launched '
+                  f'{name}')
+        launches.update(counted)
+        check(len(out) == PITCH_BATCH and all(
+            out[name].shape[1] == 42 and np.isfinite(out[name].data).all()
+            for name in out), f'{lags} lags: bad outputs')
+        worst, ties = cuda_against_cpu(
+            config, 'mfcc', batch,
+            functools.partial(pitch_batched, **options),
+            pitch_options=options)
+        single_ties = raw_against_cpu(
+            singles, pitch_per_utterance(singles, 'cuda', **options),
+            pitch_per_utterance(singles, 'cpu', **options), options)
+        say(phase, f'{lags} lags: the MFCC slice on {PITCH_BATCH} utterances '
+            f'(one batch, wall {wall:.3f} s, launches {counted}) against the '
+            f'CPU: max-abs {worst:.3g} < {SLICE_TOL} ({ties} with proven lag '
+            f'ties); per utterance on {PITCH_SINGLES}: lags equal or proven '
+            f'ties ({single_ties} with ties)')
+    check(sorted(lag_counts) == PITCH_LAGS,
+          f'the grid gave lag counts {sorted(lag_counts)}, not {PITCH_LAGS}')
+    say(phase, f'phase time {time.perf_counter() - begin:.1f} s')
+    return dict(launches)
 
 
 def frontends_pass(card, entries):
@@ -1163,19 +1301,43 @@ def make_spread_corpus(directory):
     return entries
 
 
-def pool_bound(shapes):
-    """The most bytes of int16 batch buffers a fused run over a plan of
-    batches of these (rows, samples) shapes can hold: a buffer is made
-    only when none of its shape is pooled, and at most 2 * depth + 1
-    batches are alive at once (depth decoding ahead, depth on the
-    device, the one being dispatched), so each shape has at most that
-    many buffers, and never more than its batches. The bound grows
-    with the plan's shapes, not with its length."""
+def pool_bound(shapes, itemsize=2):
+    """The most bytes of batch buffers a fused run over a plan of
+    batches of these shapes can hold (int16 (rows, samples) signals by
+    default; ``itemsize`` 1 for the (bytes,) payloads of
+    :func:`payload_shapes`): a buffer is made only when none of its
+    shape is pooled, and at most 2 * depth + 1 batches are alive at once
+    (depth decoding ahead, depth on the device, the one being
+    dispatched), so each shape has at most that many buffers, and never
+    more than its batches. The bound grows with the plan's shapes, not
+    with its length."""
     import collections
 
     per_shape = collections.Counter(shapes)
-    return sum(min(count, 2 * HOST_DEPTH + 1) * 2 * rows * samples
-               for (rows, samples), count in per_shape.items())
+    return sum(min(count, 2 * HOST_DEPTH + 1) * itemsize * math.prod(shape)
+               for shape, count in per_shape.items())
+
+
+def payload_shapes(utterances, fetch_dtype):
+    """The (bytes,) shape of each batch's packed download in a fused run
+    of the MFCC slice (:func:`slice_config`, batches of 64) over
+    ``utterances``, from the plan: MFCC [rows, F, 13] and the
+    post-processed pitch [rows, Fp, 3] in ``fetch_dtype``, the uint8 VAD
+    [rows, F], where the batch's padded signal sets F and Fp."""
+    from shennong_tpu_torch.ops.framing import (
+        FrameOptions, bucket_size, num_frames)
+    from shennong_tpu_torch.ops.pitch import PitchOpts, num_pitch_frames
+    from shennong_tpu_torch.parallel import stream
+
+    itemsize = torch.empty(0, dtype=getattr(torch, fetch_dtype)).itemsize
+    shapes = []
+    for chunk in stream.plan_batches(utterances, 64):
+        samples = bucket_size(max(stream._scan_count(u) for u in chunk))
+        frames = num_frames(samples, FrameOptions())
+        pitch_frames = num_pitch_frames(samples, PitchOpts())
+        shapes.append((len(chunk) * (frames * (13 * itemsize + 1)
+                                     + pitch_frames * 3 * itemsize),))
+    return shapes
 
 
 def host_plane(card, workdir, entries):
@@ -1258,6 +1420,35 @@ def host_plane(card, workdir, entries):
         f'+ {pool_bound(shapes)} B ({(peak - held) / largest:.2f} batches '
         f'of {largest} B above what was held)')
     check(held <= peak <= bound, f'pool peak {peak} B past {bound} B')
+
+    # the download payloads' pool (fetch_dtype's pinned uint8 buffers,
+    # apart from pool_peak_bytes), from a new pool for each precision
+    process_payloads = stream.payloads
+    try:
+        for fetch_dtype in ('float32', 'float16'):
+            stream.payloads = stream._BufferPool(dtype=torch.uint8)
+            taken, take = [], stream.payloads.take
+
+            def recording(shape, take=take, taken=taken, **kwargs):
+                taken.append(tuple(shape))
+                return take(shape, **kwargs)
+
+            stream.payloads.take = recording
+            _, fetch_wall = extract(utterances, fetch_dtype=fetch_dtype)
+            peak = stream.payloads.peak_bytes
+            shapes = payload_shapes(utterances, fetch_dtype)
+            check(sorted(taken) == sorted(shapes), f'{fetch_dtype} payloads '
+                  f'of {taken} B, the plan gives {shapes}')
+            bound = pool_bound(shapes, itemsize=1)
+            say(phase, f'download payload pool over one MFCC slice run, '
+                f'fetch_dtype {fetch_dtype} (wall {fetch_wall:.3f} s), from a '
+                f'new pool: peak {peak} B ({peak / max(shapes)[0]:.2f} '
+                f'payloads of the largest), bound {bound} B for '
+                f'{len(shapes)} payloads of {sorted(set(shapes))} B')
+            check(0 < peak <= bound, f'{fetch_dtype} payload pool peak '
+                  f'{peak} B past {bound} B')
+    finally:
+        stream.payloads = process_payloads
 
     spread = Utterances(make_spread_corpus(os.path.join(workdir, 'spread')))
     shapes = batch_shapes(spread, 64)
@@ -3650,6 +3841,9 @@ def main():
             counts, _ = the_slice(card, entries, features)
             for name, count in counts.items():
                 launches[name] += count
+        counts = pitch_options_phase(card, entries, resources, errors)
+        for name, count in counts.items():
+            launches[name] += count
         frontends_pass(card, entries)
         cli_phase(workdir, entries)
         counts, chunk_errors = long_audio(card, workdir, entries, resources)

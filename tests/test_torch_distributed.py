@@ -5,17 +5,22 @@ distributed cases of ``tests/test_multidevice.py``. Real OS processes
 join a ``gloo`` group through a ``file://`` store (no port to race for
 under xdist) and run :mod:`shennong_tpu_torch.parallel.distributed`;
 this file is also their worker (``python test_torch_distributed.py
-MODE RANK WORLD STORE WORKDIR``), so no helper module is added. Every
-group has a 60 s timeout (its rendezvous waits for processes that start
-slowly on a loaded machine) and every worker wait one of 240 s.
+MODE RANK WORLD STORE WORKDIR``), so no helper module is added. A test
+waits 240 s for its workers, and a group's rendezvous and collectives
+wait as long for a peer (a process starved of CPU on a loaded machine
+must not fail its group before the test gives up on it). A worker
+prints the clock when it joins, has joined and is done, and a failure
+reports every worker's output: it shows which wait gave way.
 
-- Two processes (one run, shared by the tests through a fixture):
-  extraction of MFCC + Kaldi pitch + CMVN by speaker + deltas, with
-  speakers that span both shards; ``train_ubm`` and one
-  ``estimate_vtln`` round; ``train_vtln``; ``extract_features`` with a
-  ``vtln`` section; ``train_ubm`` on a corpus whose name order is the
-  reverse of its length order, without and with component removal; the
-  step makers on random frames split between the processes. The models
+- Two processes, six short runs, each a module fixture that only its
+  own tests read (:data:`TWO_PROCESS_RUNS`): extraction of MFCC + Kaldi
+  pitch + CMVN by speaker + deltas, with speakers that span both
+  shards; ``train_ubm`` and one ``estimate_vtln`` round;
+  ``train_vtln``, then ``extract_features`` with a ``vtln`` section;
+  ``train_ubm`` on a corpus whose name order is the reverse of its
+  length order, without and with component removal; the step makers on
+  random frames split between the processes; the generator that every
+  process seeds alike. The models
   of both processes are equal byte for byte; each result equals the single-process run of the port
   (features 1e-5, pitch included; the float64 UBM 1e-9, where its
   statistics are summed in another order; warps equal; transforms
@@ -27,7 +32,8 @@ slowly on a loaded machine) and every worker wait one of 240 s.
   ``ValueError`` on every process; a ``train_ubm`` whose second
   process holds only unvoiced utterances equals the single-process
   model; a process that exits before the first collective makes its
-  peer exit non-zero within the group timeout.
+  peer exit non-zero within 60 s, long before the group timeout; a
+  run that outlasts the test's wait is killed and reported.
 - The step makers in a world of one equal the single-process functions
   bit for bit.
 
@@ -52,8 +58,11 @@ torch.set_num_threads(2)
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 REAL_WAV = os.path.join(HERE, 'data', 'test.wav')
-GROUP_TIMEOUT = 60      # seconds, the process group's (its rendezvous too)
 WORKER_TIMEOUT = 240    # seconds, a test's wait on its workers
+#: seconds, the process group's (its rendezvous too): no shorter than a
+#: test's wait, so that the test, not a collective, gives up first
+GROUP_TIMEOUT = WORKER_TIMEOUT
+DEAD_PEER_SECONDS = 60  # a dead peer fails the survivor within this
 FEATURES_TOL = 1e-5     # multi-process against the port's single process
 JAX_TOL = 1e-3          # against the JAX package's single process
 MODEL_TOL = 1e-9        # a UBM against the port's single process (float64)
@@ -215,21 +224,26 @@ def gmm_arrays(gmm, prefix):
 
 # ----------------------------------------------------------------- worker
 
-def run_main(workdir, rank, world):
-    """The two-process run of the tests below."""
+def run_extraction(workdir, rank, world):
+    """The main path over the corpus whose speakers span both
+    processes."""
+    from shennong_tpu_torch.parallel import distributed
+
+    return features_arrays(distributed.extract_features(
+        main_config(), utterances('spanning', workdir), device='cpu'),
+        'extract')
+
+
+def run_ubm_round(workdir, rank, world):
+    """``train_ubm``, then one ``estimate_vtln`` round with its model."""
     from shennong_tpu_torch import pipeline
     from shennong_tpu_torch.parallel import distributed
-    from shennong_tpu_torch.parallel.fused import make_em_train_steps
     from shennong_tpu_torch.processor.vtln import VtlnProcessor
 
-    out = {}
     spanning = utterances('spanning', workdir)
-    out.update(features_arrays(distributed.extract_features(
-        main_config(), spanning, device='cpu'), 'extract'))
-
     ubm = make_ubm()
     distributed.train_ubm(ubm, spanning, device='cpu')
-    out.update(gmm_arrays(ubm.gmm, 'ubm'))
+    out = gmm_arrays(ubm.gmm, 'ubm')
     shard = distributed.shard_utterances(list(spanning))
     feats = pipeline.extract_features(
         {'mfcc': {'dither': 0}, 'delta': {}}, shard, device='cpu')
@@ -243,10 +257,20 @@ def run_main(workdir, rank, world):
     for group in transforms:
         out[f'round.transform/{group}'] = transforms[group]
         out[f'round.warp/{group}'] = np.float64(warps[group])
+    return out
 
+
+def run_train_vtln(workdir, rank, world):
+    """``train_vtln``, then ``extract_features`` with a ``vtln``
+    section that trains across the processes ('wired') and one that
+    every process trains on the whole collection ('repeated')."""
+    from shennong_tpu_torch.parallel import distributed
+
+    spanning = utterances('spanning', workdir)
     vtln = make_vtln()
     warps = distributed.train_vtln(vtln, spanning, group_by='speaker',
                                    device='cpu')
+    out = {}
     for speaker, warp in warps.items():
         out[f'vtln.warp/{speaker}'] = np.float64(warp)
     for utt, transform in vtln.transforms.items():
@@ -255,22 +279,54 @@ def run_main(workdir, rank, world):
         vtln_config(), spanning, device='cpu'), 'wired'))
     out.update(features_arrays(distributed.extract_features(
         vtln_config(**REMOVAL), spanning, device='cpu'), 'repeated'))
-    shared = distributed._shared_generator(
-        torch.Generator().manual_seed(rank), 'cpu')
-    out['shared'] = torch.rand(4, generator=shared).numpy()
+    return out
+
+
+def run_reversed(workdir, rank, world):
+    """``train_ubm`` on the corpus whose name order reverses its length
+    order, without and with component removal."""
+    from shennong_tpu_torch.parallel import distributed
 
     ubm = make_ubm(num_iters_init=2, remove_low_count_gaussians=False)
     distributed.train_ubm(ubm, utterances('reversed', workdir), device='cpu')
-    out.update(gmm_arrays(ubm.gmm, 'reversed'))
+    out = gmm_arrays(ubm.gmm, 'reversed')
     ubm = make_ubm(**REMOVAL)
     distributed.train_ubm(ubm, utterances('reversed', workdir), device='cpu')
     out.update(gmm_arrays(ubm.gmm, 'removal'))
+    return out
+
+
+def run_em_steps(workdir, rank, world):
+    """The EM step maker on random frames split between the
+    processes."""
+    from shennong_tpu_torch.parallel.fused import make_em_train_steps
 
     frames, fweights, model = random_frames()
     _, *params = make_em_train_steps(None, 3)(
         frames[rank::world], fweights[rank::world], *model)
-    out.update({f'steps.{i}': p.numpy() for i, p in enumerate(params)})
-    return out
+    return {f'steps.{i}': p.numpy() for i, p in enumerate(params)}
+
+
+def run_shared(workdir, rank, world):
+    """Draws of the generator that every process seeds alike from
+    process 0's (each process's own generator seeded by its rank)."""
+    from shennong_tpu_torch.parallel import distributed
+
+    shared = distributed._shared_generator(
+        torch.Generator().manual_seed(rank), 'cpu')
+    return {'shared': torch.rand(4, generator=shared).numpy()}
+
+
+#: the two-process runs, by worker mode: each is one module fixture, read
+#: by its own tests only
+TWO_PROCESS_RUNS = {
+    'extraction': run_extraction,
+    'ubm_round': run_ubm_round,
+    'train_vtln': run_train_vtln,
+    'reversed': run_reversed,
+    'em_steps': run_em_steps,
+    'shared': run_shared,
+}
 
 
 def run_cuda(workdir):
@@ -316,14 +372,23 @@ def run_unvoiced(workdir):
 def worker(mode, rank, world, store, workdir):
     from shennong_tpu_torch.parallel import distributed
 
+    def say(event):
+        # the clock of the test's report: which wait gave way
+        print(f'{time.strftime("%H:%M:%S")} rank {rank} of {mode}: {event}',
+              flush=True)
+
     torch.set_num_threads(1)
     no_energy_dither()
+    say('joining the group')
+    if mode == 'stall':
+        time.sleep(3600)  # until the test's wait kills it
     distributed.initialize(f'file://{store}', world, rank, backend='gloo',
                            timeout=GROUP_TIMEOUT)
+    say('joined')
     if mode == 'dead' and rank == 1:
         os._exit(3)  # before any collective, and with no clean-up
-    if mode == 'main':
-        out = run_main(workdir, rank, world)
+    if mode in TWO_PROCESS_RUNS:
+        out = TWO_PROCESS_RUNS[mode](workdir, rank, world)
     elif mode == 'unvoiced':
         out = run_unvoiced(workdir)
     elif mode == 'cuda':
@@ -333,13 +398,16 @@ def worker(mode, rank, world, store, workdir):
     else:
         out = run_extract(workdir, mode)
     np.savez(os.path.join(workdir, f'{mode}-{rank}.npz'), **out)
+    say('done')
 
 
 # ------------------------------------------------------------ test helpers
 
 def launch(mode, world, workdir):
     """Run ``world`` worker processes of ``mode`` (spawned, never
-    forked); returns their (exit code, output, seconds)."""
+    forked); returns their (exit code, output) and the seconds until the
+    last one exited. Workers still running after ``WORKER_TIMEOUT`` are
+    killed, and the test fails with every worker's output."""
     store = os.path.join(workdir, f'{mode}.store')
     env = dict(os.environ)
     env['PYTHONPATH'] = os.pathsep.join(
@@ -348,18 +416,22 @@ def launch(mode, world, workdir):
     # waited for could fill and block its writer inside a collective
     logs = [open(os.path.join(workdir, f'{mode}-{rank}.log'), 'w+')
             for rank in range(world)]
+    started = time.strftime('%H:%M:%S')
     start = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), mode, str(rank),
          str(world), store, workdir],
         env=env, stdout=log, stderr=subprocess.STDOUT)
         for rank, log in enumerate(logs)]
+    timed_out = False
     try:
         for proc in procs:
             proc.wait(timeout=max(
                 start + WORKER_TIMEOUT - time.perf_counter(), 1))
-        seconds = time.perf_counter() - start
+    except subprocess.TimeoutExpired:
+        timed_out = True
     finally:
+        seconds = time.perf_counter() - start
         for proc in procs:
             proc.kill()
             proc.wait()
@@ -368,13 +440,27 @@ def launch(mode, world, workdir):
             log.seek(0)
             results.append((proc.returncode, log.read()))
             log.close()
+    if timed_out:
+        pytest.fail(report(
+            f'the test stopped waiting for its workers ({WORKER_TIMEOUT} s)',
+            mode, started, seconds, results))
     return results, seconds
 
 
+def report(what, mode, started, seconds, results):
+    """A failure's message: what gave way, when, and every worker's
+    output."""
+    return '\n'.join(
+        [f'{mode}: {what}; started {started}, {seconds:.1f} s']
+        + [f'--- rank {rank}, exit code {rc}:\n{log}'
+           for rank, (rc, log) in enumerate(results)])
+
+
 def outputs(mode, world, workdir):
-    results, _ = launch(mode, world, workdir)
-    for rc, log in results:
-        assert rc == 0, log
+    started = time.strftime('%H:%M:%S')
+    results, seconds = launch(mode, world, workdir)
+    assert all(rc == 0 for rc, _ in results), report(
+        'a worker failed', mode, started, seconds, results)
     return [dict(np.load(os.path.join(workdir, f'{mode}-{rank}.npz')))
             for rank in range(world)]
 
@@ -418,10 +504,21 @@ def workdir(tmp_path_factory):
     return str(tmp_path_factory.mktemp('distributed'))
 
 
-@pytest.fixture(scope='module')
-def two(workdir):
-    """The two-process run (:func:`run_main`), its per-process outputs."""
-    return outputs('main', 2, workdir)
+def two_process_run(mode):
+    """A module fixture: the two-process run of worker ``mode``
+    (:data:`TWO_PROCESS_RUNS`), its per-process outputs."""
+    @pytest.fixture(scope='module')
+    def run(workdir):
+        return outputs(mode, 2, workdir)
+    return run
+
+
+extraction = two_process_run('extraction')
+ubm_round = two_process_run('ubm_round')
+train_vtln = two_process_run('train_vtln')
+reversed_ubm = two_process_run('reversed')
+em_steps = two_process_run('em_steps')
+shared = two_process_run('shared')
 
 
 @pytest.fixture
@@ -437,12 +534,12 @@ def quiet_energy(monkeypatch):
 
 # ------------------------------------------------------------- two processes
 
-def test_two_process_extraction(two, workdir, quiet_energy):
+def test_two_process_extraction(extraction, workdir, quiet_energy):
     from shennong_tpu import pipeline as jpipeline
 
-    got = merged(two, 'extract')
+    got = merged(extraction, 'extract')
     assert sorted(got) == ['u0', 'u1', 'u2', 'u3']
-    assert sorted(merged(two[:1], 'extract')) == ['u0', 'u2']
+    assert sorted(merged(extraction[:1], 'extract')) == ['u0', 'u2']
     single = single_extract(main_config(), 'spanning', workdir)
     ref = jpipeline.extract_features(
         main_config(), utterances('spanning', workdir, 'jax'))
@@ -452,15 +549,15 @@ def test_two_process_extraction(two, workdir, quiet_energy):
         close(got[name], ref[name].data, JAX_TOL)
 
 
-def test_two_process_ubm_and_round(two, workdir, quiet_energy):
+def test_two_process_ubm_and_round(ubm_round, workdir, quiet_energy):
     from shennong_tpu import pipeline as jpipeline
     from shennong_tpu.processor.ubm import DiagUbmProcessor as JUbm
     from shennong_tpu_torch import pipeline
     from shennong_tpu_torch.processor.ubm import DiagGmm
     from shennong_tpu_torch.processor.vtln import VtlnProcessor
 
-    assert_same_bits(two, ('ubm.', 'round.'))
-    dist = two[0]
+    assert_same_bits(ubm_round, ('ubm.', 'round.'))
+    dist = ubm_round[0]
     corpus = utterances('spanning', workdir)
     single = make_ubm()
     single.process(corpus, device='cpu')
@@ -494,7 +591,7 @@ def test_two_process_ubm_and_round(two, workdir, quiet_energy):
     transforms, warps = vtln.estimate(
         single, feats, posteriors, {utt.name: utt.speaker for utt in corpus},
         device='cpu')
-    assert sorted(merged(two[:1], 'round.warp')) == sorted(warps)
+    assert sorted(merged(ubm_round[:1], 'round.warp')) == sorted(warps)
     for group in warps:
         assert dist[f'round.warp/{group}'] == warps[group]
         np.testing.assert_allclose(dist[f'round.transform/{group}'],
@@ -511,17 +608,17 @@ def training_frames(corpus, vtln):
     return flat[w_em > 0].to(torch.float64).numpy()
 
 
-def test_two_process_train_vtln(two, workdir):
+def test_two_process_train_vtln(train_vtln, workdir):
     sys.path.insert(0, REPO)
     from chip_smoke import action_gap
 
-    assert_same_bits(two, ('vtln.',))
+    assert_same_bits(train_vtln, ('vtln.',))
     corpus = utterances('spanning', workdir)
     plain = make_vtln()
     warps = plain.process(corpus, group_by='speaker', device='cpu')
-    assert merged(two[:1], 'vtln.warp') == warps
+    assert merged(train_vtln[:1], 'vtln.warp') == warps
     frames = training_frames(corpus, plain)
-    for utt, transform in merged(two[:1], 'vtln.transform').items():
+    for utt, transform in merged(train_vtln[:1], 'vtln.transform').items():
         assert action_gap(transform, plain.transforms[utt], frames) < 1e-6
 
 
@@ -529,9 +626,10 @@ def test_two_process_train_vtln(two, workdir):
     ('wired', {}),
     # component removal: every process trains on the whole collection
     ('repeated', REMOVAL)])
-def test_two_process_extraction_with_vtln(two, workdir, prefix, changes):
-    got = merged(two, prefix)
-    warps = merged(two, f'{prefix}.warp')
+def test_two_process_extraction_with_vtln(train_vtln, workdir, prefix,
+                                          changes):
+    got = merged(train_vtln, prefix)
+    warps = merged(train_vtln, f'{prefix}.warp')
     single = single_extract(vtln_config(**changes), 'spanning', workdir)
     assert sorted(got) == sorted(single.keys())
     for name in single:
@@ -539,45 +637,46 @@ def test_two_process_extraction_with_vtln(two, workdir, prefix, changes):
         close(got[name], single[name].data, FEATURES_TOL)
 
 
-def test_repeated_training_draws_alike(two):
+def test_repeated_training_draws_alike(shared):
     """The generator of the training every process repeats is seeded
     alike from process 0's (the processes' own generators differ)."""
-    assert_same_bits(two, ('shared',))
+    assert_same_bits(shared, ('shared',))
 
 
-def test_two_process_reversed_length_order(two, workdir):
+def test_two_process_reversed_length_order(reversed_ubm, workdir):
     from shennong_tpu_torch.parallel.stream import streamed_order
 
     corpus = utterances('reversed', workdir)
     assert streamed_order(corpus) == [5, 4, 3, 2, 1, 0]
-    assert_same_bits(two, ('reversed.',))
+    assert_same_bits(reversed_ubm, ('reversed.',))
     single = make_ubm(num_iters_init=2, remove_low_count_gaussians=False)
     single.process(corpus, device='cpu')
     for field in ('weights', 'means', 'inv_vars'):
         np.testing.assert_allclose(
-            two[0][f'reversed.{field}'], getattr(single.gmm, field),
+            reversed_ubm[0][f'reversed.{field}'], getattr(single.gmm, field),
             rtol=MODEL_TOL, atol=MODEL_TOL)
 
 
-def test_two_process_ubm_with_removal(two, workdir):
-    assert_same_bits(two, ('removal.',))
+def test_two_process_ubm_with_removal(reversed_ubm, workdir):
+    assert_same_bits(reversed_ubm, ('removal.',))
     single = make_ubm(**REMOVAL)
     single.process(utterances('reversed', workdir), device='cpu')
-    assert two[0]['removal.weights'].shape == single.gmm.weights.shape == (3,)
+    assert (reversed_ubm[0]['removal.weights'].shape
+            == single.gmm.weights.shape == (3,))
     for field in ('weights', 'means', 'inv_vars'):
         np.testing.assert_allclose(
-            two[0][f'removal.{field}'], getattr(single.gmm, field),
+            reversed_ubm[0][f'removal.{field}'], getattr(single.gmm, field),
             rtol=MODEL_TOL, atol=MODEL_TOL)
 
 
-def test_two_process_em_steps(two):
+def test_two_process_em_steps(em_steps):
     from shennong_tpu_torch.ops import gmm as gmm_ops
 
-    assert_same_bits(two, ('steps.',))
+    assert_same_bits(em_steps, ('steps.',))
     frames, fweights, model = random_frames()
     _, *params = gmm_ops.em_steps(frames, fweights, *model, num_iters=3)
     for i, param in enumerate(params):
-        np.testing.assert_allclose(two[0][f'steps.{i}'], param.numpy(),
+        np.testing.assert_allclose(em_steps[0][f'steps.{i}'], param.numpy(),
                                    rtol=1e-12, atol=1e-12)
 
 
@@ -627,7 +726,20 @@ def test_dead_process_fails_its_peer(workdir):
     assert rc1 == 3
     assert rc0 not in (0, None), log0
     assert 'RuntimeError' in log0 and 'all_gather' in log0, log0
-    assert seconds < GROUP_TIMEOUT, seconds
+    assert seconds < DEAD_PEER_SECONDS, seconds
+
+
+def test_a_stalled_run_reports_every_worker(workdir, monkeypatch):
+    """Workers that outlast the test's wait are killed, and the
+    failure says that this wait gave way, with every worker's output."""
+    monkeypatch.setitem(globals(), 'WORKER_TIMEOUT', 20)
+    with pytest.raises(pytest.fail.Exception) as caught:
+        launch('stall', 2, workdir)
+    message = str(caught.value)
+    assert ('stall: the test stopped waiting for its workers (20 s)'
+            in message), message
+    for rank in range(2):
+        assert f'--- rank {rank}, exit code -9:' in message, message
 
 
 # ------------------------------------------------------------ one process

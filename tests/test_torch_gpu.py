@@ -39,7 +39,9 @@ transforms and warps the same bits, their features 1e-5 from the
 single-process card run. The upload pool lends page-locked buffers
 that come back after their copy, and a card extraction fills the
 counters of the extraction plane (one dispatch a batch, the int16
-bytes up, the fetched bytes down).
+bytes up, the fetched bytes down). The pinned payload buffers of the
+packed download peak within ``chip_smoke.pool_bound`` of the plan's
+payload shapes, for ``fetch_dtype`` float32 and float16.
 """
 
 import copy
@@ -91,7 +93,10 @@ CASES = [
     ((1, 20000, 417), [20000]),
     # past 512 lags the backtrace streams each lane's scores
     ((2, 30, 600), [30, 12]),
-]
+    # the other lag counts of the pitch options grid (min_f0, max_f0,
+    # delta_pitch of tests/test_fuzz_parity.py), rows of 0 and 1 frames
+] + [((4, 48, lags), [48, 0, 1, 31]) for lags in (
+    133, 162, 181, 209, 266, 323, 360)]
 
 pytestmark = pytest.mark.gpu
 
@@ -848,3 +853,33 @@ def test_counters_of_a_card_extraction(cuda_device, corpus, monkeypatch):
     assert 0 < stream.pool_peak_bytes() <= 7 * len(counts) * 2 * (
         bucket_size(max(counts)))
     assert len(out) == len(counts)
+
+
+@pytest.mark.parametrize('fetch_dtype', ['float32', 'float16'])
+def test_payload_pool_is_bounded(cuda_device, tmp_path, monkeypatch,
+                                 fetch_dtype):
+    """The download payloads of a fused MFCC slice run over 8 batches in
+    two shapes (6 of one) peak within ``chip_smoke.pool_bound`` of the
+    plan's payload shapes, from a new pool."""
+    from chip_smoke import payload_shapes, pool_bound
+    from shennong_tpu_torch.parallel import stream
+
+    rng = np.random.RandomState(0)
+    entries = []
+    for index in range(8 * 64):
+        nsamples = 4800 if index % 4 else 9600  # 6 batches, then 2
+        wav = str(tmp_path / f'u{index:03d}.wav')
+        scipy.io.wavfile.write(wav, 16000, (rng.randn(nsamples) * 3000)
+                               .astype(np.int16))
+        entries.append((f'u{index:03d}', wav, f'spk{index % 8}'))
+    corpus = Utterances(entries)
+    shapes = payload_shapes(corpus, fetch_dtype)
+    assert len(shapes) == 8 and len(set(shapes)) == 2
+    monkeypatch.setattr(stream, 'payloads',
+                        stream._BufferPool(dtype=torch.uint8))
+    out = pipeline.extract_features(
+        pipeline.get_default_config(
+            'mfcc', with_pitch='kaldi', with_cmvn=True, with_delta=True),
+        corpus, fetch_dtype=fetch_dtype, device=cuda_device)
+    assert len(out) == len(entries)
+    assert 0 < stream.payloads.peak_bytes <= pool_bound(shapes, itemsize=1)
