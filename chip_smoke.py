@@ -17,8 +17,12 @@ frame, bound and share of the bound, times the previous designs of
 the banded Viterbi and the DTW against this checkout's in turns where
 their sources sit under ``build/ab_previous/`` (kept out of git),
 checks the processors against ``tests/data/golden_real.npz`` and
-``tests/kaldi_oracle.py``, and drives the port's paths over a
-generated corpus of 256 utterances (4 s and 6 s, 16 speakers):
+``tests/kaldi_oracle.py`` (and, on the JAX suite's synthetic signal,
+the spectrogram's four option sets against the oracle and
+``tests/data/golden.npz``, and the Kaldi pitch post-processing's
+batched route against its single one, bit for bit), and drives the
+port's paths over a generated corpus of 256 utterances (4 s and 6 s,
+16 speakers):
 
 - the MFCC slice, ``extract_features`` with the default MFCC + Kaldi
   pitch + CMVN + delta configuration;
@@ -90,6 +94,10 @@ generated corpus of 256 utterances (4 s and 6 s, 16 speakers):
   cuda:0) and ``sustained_scale`` at 1 h -- each output held against
   the library calls it wraps with every random source at 0, and the
   kernel launches of each counted from 0.
+
+``python3 chip_smoke.py --spectrogram-pass ROOT DIRECTORY`` runs the
+spectrogram pass alone with the package of the checkout at ROOT (two
+commits timed in turns in one call).
 
 The three Kaldi-pitch slices, the long-audio run, each process of the
 multi-process run and the examples with Kaldi pitch must go through
@@ -544,6 +552,95 @@ def frontends_golden(audio, golden):
             f'against the golden, {diff.max():.3g} against the Kaldi '
             f'oracle (worst at frame {frame}, column {column}), both < '
             f'{GOLDEN_TOL}')
+    synthetic_goldens()
+
+
+def make_speech_like_signal(nsamples, sample_rate, seed=0):
+    """A copy of ``tests/conftest.py:make_speech_like_signal`` (which
+    imports jax, absent on the card; ``tests/test_torch_ref_golden.py``
+    holds the two equal): voiced harmonics with a wandering F0,
+    formant-shaped noise bursts and silences, the first 0.1 s near
+    digital silence."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(nsamples) / sample_rate
+    f0 = 120 + 30 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sample_rate
+    voiced = sum(
+        (0.6 ** k) * np.sin((k + 1) * phase) for k in range(8))
+    envelope = 0.5 * (1 + np.sin(2 * np.pi * 3.1 * t - 0.5))
+    envelope = envelope ** 2
+    envelope[: int(0.05 * sample_rate)] = 0
+    noise = rng.randn(nsamples) * 0.02
+    noise[: int(0.1 * sample_rate)] *= 1e-2
+    signal = voiced * envelope * 0.4 + noise
+    signal = signal / np.max(np.abs(signal)) * 0.7
+    return (signal * 2 ** 15 * 0.8).astype(np.int16)
+
+
+#: the option sets of tests/processor/test_spectral.py's oracle cases
+SPECTROGRAM_OPTIONS = (
+    {}, {'raw_energy': False}, {'window_type': 'hanning'},
+    {'energy_floor': 1e4})
+
+
+def synthetic_goldens(device='cuda'):
+    """The JAX suite's synthetic signal (``audio`` of tests/conftest.py,
+    22713 samples opening with near-digital silence) on ``device`` (the
+    card; ``python3 -c "import chip_smoke;
+    chip_smoke.synthetic_goldens('cpu')"`` runs it on the CPU): the
+    spectrogram of the four option sets of its oracle cases against
+    ``tests/kaldi_oracle.py`` and the default one against
+    ``tests/data/golden.npz``, each under 1e-3 (ROADMAP C7); and the
+    Kaldi pitch post-processing of two utterances of different lengths
+    (the signal and its first 12000 samples), its batched route equal
+    to its single route bit for bit (ROADMAP C8)."""
+    from shennong_tpu_torch import Audio, FeaturesCollection
+    from shennong_tpu_torch.processor.pitch_kaldi import (
+        KaldiPitchPostProcessor, KaldiPitchProcessor)
+    from shennong_tpu_torch.processor.spectrogram import (
+        SpectrogramProcessor)
+
+    from tests import kaldi_oracle
+
+    signal = make_speech_like_signal(22713, RATE)
+    audio = Audio(signal, RATE)
+    golden = np.load(os.path.join(HERE, 'tests', 'data', 'golden.npz'))
+    for options in SPECTROGRAM_OPTIONS:
+        ours = SpectrogramProcessor(dither=0, **options).process(
+            audio, device=device).data
+        references = {'the Kaldi oracle': kaldi_oracle.spectrogram(
+            signal.astype(np.float64),
+            raw_energy=options.get('raw_energy', True),
+            window_type=options.get('window_type', 'povey'),
+            energy_floor=options.get('energy_floor', 0.0))}
+        if not options:
+            references['golden.npz'] = golden['spectrogram']
+        for what, ref in references.items():
+            check(ours.shape == ref.shape,
+                  f'spectrogram {options}: shape {ours.shape} != '
+                  f'{ref.shape}')
+            diff = np.abs(ours - ref)
+            frame, column = np.unravel_index(diff.argmax(), diff.shape)
+            check(diff.max() < GOLDEN_TOL,
+                  f'synthetic spectrogram {options}: max-abs {diff.max()} '
+                  f'against {what} at frame {frame}, bin {column}')
+            say('goldens', f'synthetic spectrogram {options} {ours.shape}: '
+                f'max-abs {diff.max():.4g} against {what} (worst at frame '
+                f'{frame}, bin {column}) < {GOLDEN_TOL}')
+
+    raws = {
+        name: KaldiPitchProcessor().process(Audio(data, RATE), device=device)
+        for name, data in (('whole', signal), ('short', signal[:12000]))}
+    post = KaldiPitchPostProcessor(
+        delta_pitch_noise_stddev=0, add_raw_log_pitch=True)
+    batched = post.process_collection(
+        FeaturesCollection(raws), device=device)
+    for name, raw in raws.items():
+        single = post.process(raw, device=device)
+        check(np.array_equal(batched[name].data, single.data),
+              f'pitch post {name}: process_collection != process')
+        say('goldens', f'pitch post-processing {name} {single.shape}: '
+            'process_collection equals process bit for bit')
 
 
 # ------------------------------------------------------------------ slice
@@ -926,7 +1023,10 @@ def pitch_options_phase(card, entries, resources, errors):
     return dict(launches)
 
 
-def frontends_pass(card, entries):
+FRONTENDS = (('filterbank', True, 69), ('spectrogram', False, 257))
+
+
+def frontends_pass(card, entries, passes=FRONTENDS):
     """The filterbank (CMVN + deltas, 69 columns) and spectrogram
     (CMVN, 257 columns) passes over the corpus: a cold run whose shapes
     and finiteness are checked, 5 timed warm runs and a profiled
@@ -937,8 +1037,7 @@ def frontends_pass(card, entries):
 
     utterances = Utterances(entries)
     audio_seconds = sum(utt.duration for utt in utterances)
-    for features, delta, columns in (
-            ('filterbank', True, 69), ('spectrogram', False, 257)):
+    for features, delta, columns in passes:
         phase = f'{features} pass'
         config = pipeline.get_default_config(
             features, with_cmvn=True, with_delta=delta)
@@ -1611,6 +1710,27 @@ def first_call(mode, directory):
     out.save(os.path.join(directory, f'{mode}.npz'))
     with open(os.path.join(directory, f'{mode}.json'), 'w') as fp:
         json.dump(timing, fp)
+
+
+def spectrogram_pass(root, directory):
+    """``python3 chip_smoke.py --spectrogram-pass ROOT DIRECTORY``: the
+    ``spectrogram pass`` phase alone, over a corpus written under
+    DIRECTORY, with the ``shennong_tpu_torch`` of the checkout at ROOT
+    (this one, or another commit unpacked under the ignored ``build/``):
+    two versions timed in turns in one call, each in a fresh process."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import shennong_tpu_torch
+
+    package = os.path.dirname(os.path.abspath(shennong_tpu_torch.__file__))
+    check(package == os.path.join(root, 'shennong_tpu_torch'),
+          f'imported {package}, not the package under {root}')
+    card = probe()
+    say('spectrogram pass', f'package {package}')
+    try:
+        frontends_pass(card, make_corpus(directory), FRONTENDS[1:])
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
 
 
 # ------------------------------------------------------------ VTLN slice
@@ -3901,5 +4021,7 @@ if __name__ == '__main__':
         distributed_worker(int(sys.argv[2]), sys.argv[3])
     elif sys.argv[1:2] == ['--first-call']:
         first_call(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ['--spectrogram-pass']:
+        spectrogram_pass(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -134,16 +134,19 @@ def is_kaldi_binary(path):
 
 # -------------------------------------------------------------- DiagGmm
 
-def read_diag_gmm(path):
-    """Read a Kaldi binary DiagGmm.
+def read_diag_gmm(path_or_fp):
+    """Read a Kaldi binary DiagGmm from a path, or from an open binary
+    file positioned past the binary marker.
 
     Returns (weights [G], means [G, D], inv_vars [G, D]) float64 (the
     stream stores means * inv_vars; gconsts are dropped and recomputed
     on demand).
     """
-    with open(path, 'rb') as fp:
-        _check_marker(fp)
-        return _read_diag_gmm_stream(fp)
+    if isinstance(path_or_fp, (str, bytes)):
+        with open(path_or_fp, 'rb') as fp:
+            _check_marker(fp)
+            return _read_diag_gmm_stream(fp)
+    return _read_diag_gmm_stream(path_or_fp)
 
 
 def _read_diag_gmm_stream(fp):
@@ -163,11 +166,15 @@ def _read_diag_gmm_stream(fp):
     return weights, means_invvars / inv_vars, inv_vars
 
 
-def write_diag_gmm(path, weights, means, inv_vars):
-    """Write a Kaldi binary DiagGmm readable by Kaldi tools."""
-    with open(path, 'wb') as fp:
-        fp.write(BINARY_MARKER)
-        _write_diag_gmm_stream(fp, weights, means, inv_vars)
+def write_diag_gmm(path_or_fp, weights, means, inv_vars):
+    """Write a Kaldi binary DiagGmm readable by Kaldi tools, to a path
+    (marker included) or to an open binary file (no marker)."""
+    if isinstance(path_or_fp, (str, bytes)):
+        with open(path_or_fp, 'wb') as fp:
+            fp.write(BINARY_MARKER)
+            _write_diag_gmm_stream(fp, weights, means, inv_vars)
+        return
+    _write_diag_gmm_stream(path_or_fp, weights, means, inv_vars)
 
 
 def _write_diag_gmm_stream(fp, weights, means, inv_vars):
@@ -194,14 +201,17 @@ def _write_diag_gmm_stream(fp, weights, means, inv_vars):
 
 # ------------------------------------------------------------ LinearVtln
 
-def read_lvtln(path):
-    """Read a Kaldi binary LinearVtln.
+def read_lvtln(path_or_fp):
+    """Read a Kaldi binary LinearVtln from a path, or from an open
+    binary file positioned past the binary marker.
 
     Returns (transforms [C, D, D], warps [C], default_class).
     """
-    with open(path, 'rb') as fp:
-        _check_marker(fp)
-        return _read_lvtln_stream(fp)
+    if isinstance(path_or_fp, (str, bytes)):
+        with open(path_or_fp, 'rb') as fp:
+            _check_marker(fp)
+            return _read_lvtln_stream(fp)
+    return _read_lvtln_stream(path_or_fp)
 
 
 def _read_lvtln_stream(fp):
@@ -229,11 +239,15 @@ def _read_lvtln_stream(fp):
     return transforms, warps, default_class
 
 
-def write_lvtln(path, transforms, warps, default_class):
-    """Write a Kaldi binary LinearVtln readable by Kaldi tools."""
-    with open(path, 'wb') as fp:
-        fp.write(BINARY_MARKER)
-        _write_lvtln_stream(fp, transforms, warps, default_class)
+def write_lvtln(path_or_fp, transforms, warps, default_class):
+    """Write a Kaldi binary LinearVtln readable by Kaldi tools, to a
+    path (marker included) or to an open binary file (no marker)."""
+    if isinstance(path_or_fp, (str, bytes)):
+        with open(path_or_fp, 'wb') as fp:
+            fp.write(BINARY_MARKER)
+            _write_lvtln_stream(fp, transforms, warps, default_class)
+        return
+    _write_lvtln_stream(path_or_fp, transforms, warps, default_class)
 
 
 def _write_lvtln_stream(fp, transforms, warps, default_class):

@@ -27,9 +27,13 @@ def warp_class_mapping_moments(signals, nsamples, nframes, mel_weights,
     classes plus the unwarped reference (``mel_weights[C]`` is the
     unwarped bank, framing and FFT shared) are reduced against the
     frame-selection ``weights`` [B, T] (VAD and subsampling) on the
-    device; the features never reach the host. The second moments are
-    centered at the batch means so the float32 accumulation stays well
-    conditioned; :func:`merge_moments` merges batches in float64.
+    device; the features never reach the host. The features are
+    float32; the moments are accumulated in float64 (a departure from
+    the JAX package's float32): the base-transform solve amplifies
+    their rounding by the covariance's condition number, and float32
+    moments put a transform 2.4e-3 from a float64 least-squares solve
+    on the same features. The second moments are centered at the batch
+    means; :func:`merge_moments` merges batches in float64.
 
     Returns (beta, mu_x [D], mu_y [C, D], Cxx [D, D], Cyx [C, D, D]).
     """
@@ -47,6 +51,8 @@ def warp_class_mapping_moments(signals, nsamples, nframes, mel_weights,
             window=delta_window)
         feats = flat.reshape(nclasses1, bsz, maxframes, -1)
 
+    feats = feats.to(torch.float64)
+    weights = weights.to(torch.float64)
     x = feats[-1]        # [B, T, D] unwarped
     y = feats[:-1]       # [C, B, T, D] warped
 

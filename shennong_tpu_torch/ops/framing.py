@@ -58,15 +58,27 @@ def next_power_of_two(n):
     return 1 << (int(n) - 1).bit_length()
 
 
-def num_frames(nsamples, opts):
+def num_frames(nsamples, opts, flush=True):
     """Number of frames extractable from ``nsamples`` samples (Kaldi
-    NumFrames with flush, both ``snip_edges`` settings)."""
+    NumFrames, both ``snip_edges`` settings).
+
+    Without ``flush`` (and ``snip_edges`` off) the frames that would
+    run past the end of the signal are not counted.
+    """
     shift, length = opts.window_shift, opts.window_size
     if opts.snip_edges:
         if nsamples < length:
             return 0
         return 1 + (nsamples - length) // shift
-    return (nsamples + shift // 2) // shift
+
+    nframes = (nsamples + shift // 2) // shift
+    if flush:
+        return nframes
+    end = first_sample_of_frame(nframes - 1, opts) + length
+    while nframes > 0 and end > nsamples:
+        nframes -= 1
+        end -= shift
+    return nframes
 
 
 def frame_counts(nsamples, opts):
@@ -92,7 +104,15 @@ def first_sample_of_frame(frame, opts):
 
 @functools.lru_cache(maxsize=None)
 def window_function(window_type, window_size, blackman_coeff=0.42):
-    """The window vector (float32 numpy), one of the five Kaldi types.
+    """The window vector (float32 numpy), one of the five Kaldi types
+    (:func:`window_function64` rounded)."""
+    return window_function64(
+        window_type, window_size, blackman_coeff).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def window_function64(window_type, window_size, blackman_coeff=0.42):
+    """The window vector (float64 numpy), one of the five Kaldi types.
 
     Formulas (N = window_size, a = 2*pi/(N-1)):
       hanning     0.5 - 0.5 cos(a n)
@@ -119,7 +139,7 @@ def window_function(window_type, window_size, blackman_coeff=0.42):
     else:  # blackman
         win = (blackman_coeff - 0.5 * np.cos(a * n)
                + (0.5 - blackman_coeff) * np.cos(2 * a * n))
-    return win.astype(np.float32)
+    return win
 
 
 def _reflect_indices(indices, nsamples):
@@ -142,14 +162,16 @@ def extract_frames(signals, nsamples, opts, nframes_max):
     Parameters
     ----------
     signals : [batch, time] tensor, samples in int16 range (int16 or
-        float32; widened to float32)
+        float32, widened to float32; or float64, kept for the
+        spectrogram's float64 chain)
     nsamples : [batch] int32 tensor, true per-utterance sample counts
     opts : FrameOptions
     nframes_max : int, frames to extract per utterance
 
     Returns
     -------
-    frames : [batch, nframes_max, window_size] float32
+    frames : [batch, nframes_max, window_size] float32 (float64 from
+        float64 signals)
 
     With ``snip_edges`` the frames are strided views of the (zero
     padded) signal; without it the edge frames reflect around each
@@ -157,7 +179,8 @@ def extract_frames(signals, nsamples, opts, nframes_max):
     """
     size = opts.window_size
     shift = opts.window_shift
-    signals = signals.to(torch.float32)
+    if signals.dtype != torch.float64:
+        signals = signals.to(torch.float32)
     bsz = signals.shape[0]
 
     if opts.snip_edges:
@@ -187,18 +210,22 @@ def process_frames(frames, opts, generator=None):
     raw energy, pre-emphasis, window multiplication, zero-padding to
     the padded window size.
 
+    The chain runs in the frames' dtype (float32, or float64 for the
+    spectrogram); the dither is drawn in float32 whatever the frames'
+    dtype, so a seeded generator gives the same noise either way.
+
     Parameters
     ----------
-    frames : [batch, nframes, window_size] float32
+    frames : [batch, nframes, window_size] float32 or float64
     opts : FrameOptions
     generator : torch.Generator on the frames' device, required when
         ``opts.dither`` is non-zero
 
     Returns
     -------
-    padded : [batch, nframes, padded_window_size] float32
-    raw_log_energy : [batch, nframes] float32, log energy measured
-        after DC removal but before pre-emphasis and windowing
+    padded : [batch, nframes, padded_window_size], the frames' dtype
+    raw_log_energy : [batch, nframes], the frames' dtype, log energy
+        measured after DC removal but before pre-emphasis and windowing
     """
     size = opts.window_size
 
@@ -209,8 +236,8 @@ def process_frames(frames, opts, generator=None):
             raise ValueError(
                 'opts.dither is non-zero but no generator was provided')
         frames = frames + opts.dither * torch.randn(
-            frames.shape, generator=generator, dtype=frames.dtype,
-            device=frames.device)
+            frames.shape, generator=generator, dtype=torch.float32,
+            device=frames.device).to(frames.dtype)
 
     if opts.remove_dc_offset:
         frames = frames - frames.mean(dim=-1, keepdim=True)
@@ -222,8 +249,10 @@ def process_frames(frames, opts, generator=None):
         previous = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
         frames = frames - opts.preemph_coeff * previous
 
+    window = (window_function64 if frames.dtype == torch.float64
+              else window_function)
     win = torch.as_tensor(
-        window_function(opts.window_type, size, opts.blackman_coeff),
+        window(opts.window_type, size, opts.blackman_coeff),
         device=frames.device)
     frames = frames * win
 

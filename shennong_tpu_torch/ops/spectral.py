@@ -75,21 +75,22 @@ def power_spectrum(frames, padded_size):
 
 
 def _power_and_energy(signals, nsamples, opts, nframes_max, generator,
-                      fft_dtype=torch.float32):
-    """Power spectrum (float32, its FFT in ``fft_dtype``) and frame log
-    energy (raw, pre-window, or windowed according to
-    ``opts.raw_energy``)."""
+                      dtype=torch.float32):
+    """Power spectrum and frame log energy (raw, pre-window, or
+    windowed according to ``opts.raw_energy``), float32.
+
+    The frame chain and the FFT run in ``dtype``.
+    """
     frames = framing.extract_frames(
-        signals, nsamples, opts.frame, nframes_max)
+        signals.to(dtype), nsamples, opts.frame, nframes_max)
     processed, raw_log_energy = framing.process_frames(
         frames, opts.frame, generator=generator)
     if opts.raw_energy:
         log_energy = raw_log_energy
     else:
         log_energy = framing.windowed_log_energy(processed)
-    power = power_spectrum(
-        processed.to(fft_dtype), opts.frame.padded_window_size)
-    return power.to(torch.float32), log_energy
+    power = power_spectrum(processed, opts.frame.padded_window_size)
+    return power.to(torch.float32), log_energy.to(torch.float32)
 
 
 def _floor_energy(log_energy, energy_floor):
@@ -116,14 +117,21 @@ def spectrogram_batch(signals, nsamples, opts, nframes_max, generator=None):
 
     Output shape [B, nframes_max, padded_window_size // 2 + 1].
 
-    The FFT runs in float64: every bin's log is an output, and the log
-    of a bin near the floor amplifies a float32 FFT's rounding (cuFFT's
-    reached 1.0e-3 against Kaldi's float64 arithmetic on
-    tests/data/test.wav, at the Nyquist bin).
+    The frame chain (extraction, dither, DC removal, raw energy,
+    pre-emphasis, window) and the FFT run in float64; the output is
+    float32. Every bin's log is an output, and the log of a low bin of
+    a near-silent frame amplifies float32 rounding: a float32 FFT
+    (cuFFT's reached 1.0e-3 against Kaldi's float64 arithmetic on
+    tests/data/test.wav, at the Nyquist bin) and a float32 frame
+    chain (1.06e-3 on a signal that opens with near-digital silence)
+    both missed Kaldi's 1e-3. The dither is still drawn in float32, so
+    seeded runs keep their noise. Filterbank, MFCC, PLP and energy keep
+    the float32 chain: their mel sums and DCT average the low bins'
+    error away, and they hold Kaldi's 1e-3 as they are.
     """
     power, log_energy = _power_and_energy(
         signals, nsamples, opts, nframes_max, generator,
-        fft_dtype=torch.float64)
+        dtype=torch.float64)
     feats = torch.log(torch.clamp_min(power, FLT_EPSILON))
     feats[..., 0] = _floor_energy(log_energy, opts.energy_floor)
     return feats

@@ -335,6 +335,11 @@ def viterbi_banded_obs_batch(log_start, band, uniform_weight, self_weight,
     same float32 operations bit for bit, or raises. Float32 scores may
     resolve near-ties differently from the float64 host decode.
     """
+    if not torch.is_tensor(observations):
+        raise TypeError(
+            'observations must be a [B, T] int32 torch.Tensor, it is a '
+            f'{type(observations).__module__}.{type(observations).__name__}'
+            f' of shape {tuple(np.shape(observations))}')
     device = observations.device
     if observations.dtype != torch.int32 or observations.ndim != 2:
         raise ValueError(

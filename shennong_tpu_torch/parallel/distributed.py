@@ -289,8 +289,8 @@ def _shared_generator(generator, device):
     return shared
 
 
-def train_ubm(ubm, utterances, njobs=1, *, device, generator=None,
-              log=get_logger('distributed', 'info')):
+def train_ubm(ubm, utterances, njobs=1, signal_cache=None, *, device,
+              generator=None, log=get_logger('distributed', 'info')):
     """Multi-process :meth:`DiagUbmProcessor.process` (the fused
     front-end).
 
@@ -311,10 +311,13 @@ def train_ubm(ubm, utterances, njobs=1, *, device, generator=None,
       and every process applies the same update.
 
     Sets and returns ``ubm.gmm``, the same bits on every process.
-    ``njobs`` bounds the audio decode, as in the single process.
+    ``njobs`` bounds the audio decode, as in the single process;
+    ``signal_cache`` (a
+    :class:`~shennong_tpu_torch.parallel.stream.SignalCache` or None)
+    keeps the front-end's uploads for a later sweep.
     """
-    return _train_ubm(ubm, list(utterances), device, generator, None,
-                      njobs, log)[0]
+    return _train_ubm(ubm, list(utterances), device, generator,
+                      signal_cache, njobs, log)[0]
 
 
 def _train_ubm(ubm, utterances, device, generator, signal_cache, njobs,

@@ -569,7 +569,7 @@ class BatchExecutor:
         warped features never reach the host, and the moments of all
         batches are fetched once at the end.
 
-        Returns the list of per-batch moment tuples (numpy float32) for
+        Returns the list of per-batch moment tuples (numpy float64) for
         :func:`shennong_tpu_torch.ops.fmllr.solve_mapping_from_moments`.
         ``njobs`` bounds the decode of the audio that the native loader
         does not read; each batch's host buffer goes back to the pool
@@ -593,15 +593,16 @@ class BatchExecutor:
             dtype=torch.float32, device=self.device)
 
         # the moment program holds the (C+1)-way warped features
-        # [C+1, rows, T, D(+deltas)] about twice: size the batch rows to
-        # a ~2 GB footprint, so long utterances shrink the batch
+        # [C+1, rows, T, D(+deltas)] about twice in float64: size the
+        # batch rows to a ~2 GB footprint, so long utterances shrink
+        # the batch
         frame_opts = proc.frame_options()
         max_frames = max(
             proc.output_frames(int(utt.duration * float(proc.sample_rate)))
             for utt in utterances)
         dim = proc.ndims * (
             delta_order + 1 if delta_order is not None else 1)
-        bytes_per_row = (len(class_warps) + 1) * max_frames * dim * 4 * 2
+        bytes_per_row = (len(class_warps) + 1) * max_frames * dim * 8 * 2
         batch_rows = min(64, max(1, int((2 << 30) // max(bytes_per_row, 1))))
 
         source = stream.stream_source(

@@ -333,14 +333,16 @@ class SignalCache:
     remaining budget streams normally every time. The cache is an
     optimisation and never changes what a sweep yields. Its entries
     are copies (on the CPU too), and the host buffers go back to the
-    pool once an event after their copy has completed.
+    pool once an event after their copy has completed; ``depth`` copies
+    stay in flight before the first of them is waited for.
     """
 
-    def __init__(self, max_bytes=1 << 30, *, device):
+    def __init__(self, max_bytes=1 << 30, depth=2, *, device):
         self._entries = {}
         self._oversize = set()
         self._max_bytes = int(max_bytes)
         self._bytes = 0
+        self._depth = max(1, int(depth))
         self.device = torch.device(device)
 
     @staticmethod
@@ -387,7 +389,7 @@ class SignalCache:
                 entries.append(batch)
             # a small window of copies in flight keeps the pool fed
             # without a wait on every batch
-            uploads.release(keep=depth)
+            uploads.release(keep=self._depth)
             yield batch
         uploads.drain()
         if store:

@@ -15,7 +15,7 @@ from shennong_tpu_torch.features_collection import FeaturesCollection
 from shennong_tpu_torch.ops.pitch import (
     PitchOpts, ProcessPitchOpts, compute_pitch, compute_pitch_long,
     num_pitch_frames, process_pitch)
-from shennong_tpu_torch.ops.postops import batch_ragged
+from shennong_tpu_torch.ops.postops import batch_ragged, pad_frame_axis
 from shennong_tpu_torch.processor.base import (
     FeaturesProcessor, fresh_generator)
 from shennong_tpu_torch.postprocessor.base import FeaturesPostProcessor
@@ -528,10 +528,14 @@ class KaldiPitchPostProcessor(FeaturesPostProcessor):
                 'data shape must be (_, 2), but it is (_, {})'
                 .format(raw_pitch.shape[1]))
 
-        data = torch.as_tensor(
-            raw_pitch.data, dtype=torch.float32, device=device)[None]
-        nframes = torch.tensor(
-            [raw_pitch.nframes], dtype=torch.int32, device=device)
+        # padded to the frame bucket :meth:`process_collection` would
+        # give it, so that both routes give the same bits: on the CPU
+        # the elementwise kernels run their vector loop over whole
+        # vectors and a scalar loop over the tail, and the two round
+        # torch.pow differently (the pov feature)
+        padded, nframes = pad_frame_axis(raw_pitch.data)
+        data = torch.as_tensor(padded, device=device)
+        nframes = torch.as_tensor(nframes, device=device)
         noise = None
         if self.add_delta_pitch and self._delta_pitch_noise_stddev != 0:
             if generator is None:
@@ -542,7 +546,7 @@ class KaldiPitchPostProcessor(FeaturesPostProcessor):
 
         out = process_pitch(data, nframes, self.options(), noise=noise)
         return Features(
-            out[0].cpu().numpy(), raw_pitch.times,
+            out[0, :raw_pitch.nframes].cpu().numpy(), raw_pitch.times,
             properties=self.get_properties(raw_pitch))
 
     def process_collection(self, collection, batch_rows=16, *, device,

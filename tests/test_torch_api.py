@@ -9,6 +9,10 @@
    longer hides a missing name fails too.
    Every public function or method of ``shennong_tpu/`` that takes
    ``njobs`` has a counterpart that takes it with the same default.
+   Every public function and method (``__init__`` included) with a
+   counterpart takes the same parameters in the same order, apart from
+   ``key``, ``device`` and ``generator``, unless :data:`SIGNATURES`
+   lists it with its reason.
 2. The names ported with the walk behave as the JAX package's on the
    same inputs: the root's version helpers, ``Audio.channel``,
    ``precision`` and ``save``, ``Features.is_close``,
@@ -80,6 +84,53 @@ EXEMPT = {
         'the float32 WAV loader: the port loads PCM16 rows with '
         'native.load_wav_batch_i16 and reads other WAVs with scipy; no '
         'item'),
+}
+
+
+_GROUP = (
+    "the JAX package's mesh (or the mesh's axis name) is the port's "
+    "torch.distributed process group, or the reduction over it")
+_PAD = (
+    "pad_to_multiple (rows divisible by a mesh's data axis) is not in "
+    "the port's streaming: one process drives one device; the port's "
+    "streams take pin_memory, whether the host rows are pinned for the "
+    "copy to the card")
+
+#: public callables whose parameters differ from the JAX package's
+#: beyond key/device/generator: 'module:name' -> why
+SIGNATURES = {
+    'ops.fmllr:lvtln_rounds': _GROUP + ' (axis_name -> reduce)',
+    'ops.gmm:em_step': _GROUP + ' (axis_name -> reduce)',
+    'ops.gmm:em_steps': _GROUP + ' (reduce added: the distributed EM '
+                                 'sums its statistics through it)',
+    'parallel.fused:make_em_train_steps': _GROUP + ' (mesh -> group)',
+    'parallel.fused:make_accumulate_step': _GROUP + ' (mesh -> group)',
+    'parallel.fused:make_lvtln_round_step': _GROUP + ' (mesh -> group)',
+    'parallel.fused:make_lvtln_train_steps': _GROUP + ' (mesh -> group)',
+    'parallel.distributed:allreduce_f64': _GROUP + ' (group added)',
+    'parallel.executor:FusedPipelineExecutor.__init__': (
+        _GROUP + ' (no mesh: one process drives one device)'),
+    'parallel.executor:BatchExecutor.__init__': (
+        _GROUP + ' (no mesh: one process drives one device)'),
+    'parallel.distributed:initialize': (
+        "torch.distributed.init_process_group's arguments (init_method, "
+        'world_size, rank, backend, timeout) replace '
+        "jax.distributed.initialize's (coordinator_address, "
+        'num_processes, process_id)'),
+    'models.crepe:forward_audio_chunk': (
+        'params -> model: the CNN is the nn.Module models.crepe.Crepe, '
+        'not a parameter pytree'),
+    'parallel.stream:recycle': (
+        'array -> tensor: the pool lends torch tensors'),
+    'parallel.stream:decode_batch': (
+        'rows -> pin_memory: ' + _PAD),
+    'parallel.stream:plan_batches': _PAD,
+    'parallel.stream:stream_batches': _PAD,
+    'parallel.stream:stream_source': _PAD,
+    'parallel.stream:SignalCache.stream': _PAD,
+    'ops.plp:rasta_filter': (
+        "nframes added: the filter's history restarts at each row's "
+        'true length in a padded batch'),
 }
 
 
@@ -205,6 +256,108 @@ def test_njobs_parameters_have_counterparts():
             wrong.append(f'{rel}:{name} (JAX default {default!r}, port '
                          f'{None if parameter is None else parameter})')
     assert not wrong, '\n'.join(wrong)
+
+
+def public_callables(path):
+    """'name' or 'Class.method' of the public functions of a module,
+    the public methods of its public classes and their ``__init__``
+    (properties left out)."""
+    with open(path) as stream:
+        tree = ast.parse(stream.read(), path)
+    found = []
+    for node in tree.body:
+        if (not isinstance(node, (ast.FunctionDef, ast.ClassDef))
+                or node.name.startswith('_')):
+            continue
+        if isinstance(node, ast.FunctionDef):
+            found.append(node.name)
+            continue
+        for sub in node.body:
+            if (isinstance(sub, ast.FunctionDef)
+                    and (sub.name == '__init__'
+                         or not sub.name.startswith('_'))
+                    and not any(
+                        getattr(d, 'id', getattr(d, 'attr', None))
+                        in ('property', 'setter')
+                        for d in sub.decorator_list)):
+                found.append(f'{node.name}.{sub.name}')
+    return found
+
+
+def signature_differences():
+    """({'module:name': (JAX parameters, port parameters)} of every
+    callable with a counterpart whose parameters differ, the count of
+    callables compared)."""
+    import inspect
+
+    ignored = {'key', 'device', 'generator'}
+    differences, compared = {}, 0
+    for path, rel in jax_modules():
+        suffix = f'.{rel}' if rel else ''
+        try:
+            ours = importlib.import_module('shennong_tpu_torch' + suffix)
+        except ModuleNotFoundError:
+            continue  # an EXEMPT module
+        theirs = importlib.import_module('shennong_tpu' + suffix)
+        for name in public_callables(path):
+            pair = []
+            for module in (theirs, ours):
+                target = module
+                for part in name.split('.'):
+                    target = getattr(target, part, None)
+                pair.append(target)
+            if not all(callable(target) for target in pair):
+                continue  # an EXEMPT name, or a class attribute
+            params = [
+                [p for p in inspect.signature(target).parameters
+                 if p not in ignored] for target in pair]
+            compared += 1
+            if params[0] != params[1]:
+                differences[f'{rel}:{name}'] = tuple(params)
+    return differences, compared
+
+
+def test_signatures_match():
+    """Every callable with a counterpart takes the JAX package's
+    parameters, in its order, apart from key/device/generator and the
+    differences :data:`SIGNATURES` explains; an entry that no longer
+    hides a difference fails too."""
+    differences, compared = signature_differences()
+    assert compared > 300
+    unexplained = sorted(set(differences) - set(SIGNATURES))
+    assert not unexplained, '\n'.join(
+        f'{name}: JAX {differences[name][0]}, port {differences[name][1]}'
+        for name in unexplained)
+    stale = sorted(set(SIGNATURES) - set(differences))
+    assert not stale, f'listed but equal in the port: {stale}'
+
+
+def test_signature_walk_sees_the_callables():
+    """The walk reaches methods, __init__ and the functions that lost a
+    parameter once (num_frames' flush, train_ubm's signal_cache,
+    SignalCache's depth, kaldiio's path_or_fp)."""
+    names = {rel: public_callables(path) for path, rel in jax_modules()}
+    assert 'num_frames' in names['ops.framing']
+    assert 'train_ubm' in names['parallel.distributed']
+    assert 'SignalCache.__init__' in names['parallel.stream']
+    assert 'Audio.channel' in names['audio']
+    assert {'read_diag_gmm', 'write_diag_gmm', 'read_lvtln',
+            'write_lvtln'} <= set(names['kaldiio'])
+
+
+@pytest.mark.parametrize('snip_edges', [True, False])
+@pytest.mark.parametrize('flush', [True, False])
+def test_num_frames_flush(snip_edges, flush):
+    """Kaldi's NumFrames with and without flush, against the JAX
+    package's, over lengths from empty to a few frames past 1 s."""
+    from shennong_tpu.ops import framing as jframing
+    from shennong_tpu_torch.ops import framing
+
+    ours = framing.FrameOptions(snip_edges=snip_edges)
+    theirs = jframing.FrameOptions(snip_edges=snip_edges)
+    for nsamples in list(range(0, 1200)) + list(range(15000, 17000, 7)):
+        assert framing.num_frames(nsamples, ours, flush=flush) == \
+            jframing.num_frames(nsamples, theirs, flush=flush), nsamples
 
 
 def test_walk_sees_the_api():

@@ -317,6 +317,18 @@ def test_banded_obs_batch_refuses_bad_input():
             np.zeros(360), band, uniform, self_w, obs, [5], 11)
 
 
+def test_banded_obs_batch_names_a_non_tensor():
+    """A numpy array of the right dtype and shape is refused by its
+    type, not by a dtype it has."""
+    _, _, uniform, self_w, band = pitch_crepe._crepe_prior_logs(360)
+    with pytest.raises(
+            TypeError, match=r'torch\.Tensor, it is a numpy\.ndarray '
+            r'of shape \(6, 500\)'):
+        viterbi.viterbi_banded_obs_batch(
+            np.zeros(360), band, uniform, self_w,
+            np.zeros((6, 500), dtype=np.int32), [500] * 6, 11)
+
+
 # ------------------------------------------------------------ processor
 
 def both(path):

@@ -9,9 +9,10 @@ on the CPU. Tolerances (max-abs):
   linear outputs relative to the row's largest value);
 - ``spectrogram_batch``: 1e-4 on the energy column and on the power
   (relative to the frame's largest bin) against JAX, 1e-4 on the log
-  power against a float64 FFT: the port's FFT is float64 there, the
-  reference's float32, whose rounding the log of a bin near the floor
-  amplifies (up to 9e-4 against Kaldi on test.wav);
+  power against the float64 Kaldi oracle (``tests/kaldi_oracle.py``):
+  the port's frame chain and FFT are float64 there, the reference's
+  float32, whose rounding the log of a bin near the floor amplifies
+  (up to 9e-4 against Kaldi on test.wav);
 - ``sliding_window_cmvn``: 1e-5 on unit-scale features, and against
   Kaldi's float64 arithmetic;
 - the processors on tests/data/test.wav: 1e-3 against
@@ -129,10 +130,10 @@ def test_fbank_batch_per_row_warps():
     {}, {'raw_energy': False}, {'energy_floor': 1e6}])
 def test_spectrogram_batch(options):
     """The energy column and the power (relative to each frame's
-    largest bin) against the JAX package; the log power against a
-    float64 FFT of the same processed frames. The reference's float32
-    FFT is not held in the log domain: the log of a bin near the floor
-    amplifies its rounding past 1e-3."""
+    largest bin) against the JAX package; the log power against the
+    float64 Kaldi oracle of each row. The reference's float32 frame
+    chain and FFT are not held in the log domain: the log of a bin near
+    the floor amplifies their rounding past 1e-3."""
     signals, lengths = padded_batch([16000, 9000, 4000])
     jopts = jspectral.SpectrogramOpts(
         frame=jframing.FrameOptions(dither=0.0), **options)
@@ -147,12 +148,13 @@ def test_spectrogram_batch(options):
         nframes_max).numpy()
     assert_rows_close(ours[..., :1], ref[..., :1], lengths, opts, 1e-4)
 
-    frames, _ = framing.process_frames(framing.extract_frames(
-        torch.from_numpy(signals), torch.from_numpy(lengths), opts.frame,
-        nframes_max), opts.frame)
-    spectrum = np.fft.rfft(frames.numpy().astype(np.float64), axis=-1)
-    exact = np.log(np.maximum(
-        np.abs(spectrum) ** 2, np.finfo(np.float32).eps))
+    exact = np.zeros(ours.shape)
+    for row, length in enumerate(lengths):
+        oracle = kaldi_oracle.spectrogram(
+            signals[row, :length].astype(np.float64),
+            raw_energy=options.get('raw_energy', True),
+            energy_floor=options.get('energy_floor', 0.0))
+        exact[row, :len(oracle)] = oracle
     assert_rows_close(ours[..., 1:], exact[..., 1:], lengths, opts, 1e-4)
 
     power, ref_power = np.exp(ours[..., 1:]), np.exp(ref[..., 1:])
