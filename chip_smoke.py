@@ -747,7 +747,6 @@ def the_slice(card, entries, features):
     CPU on 8 utterances with every random source at 0."""
     from shennong_tpu_torch import Utterances
     from shennong_tpu_torch import pipeline
-    from shennong_tpu_torch.ops import cuda_viterbi
 
     phase = f'{features} slice'
     config = slice_config(features)
@@ -758,9 +757,9 @@ def the_slice(card, entries, features):
     warm = Utterances(entries[:64])
     pipeline.extract_features(copy.deepcopy(config), warm, device='cuda')
 
-    cuda_viterbi.reset_launches()
+    reset_counters()
     walls, features_out = warm_runs(config, utterances)
-    launches = dict(cuda_viterbi.LAUNCHES)
+    launches = launch_counts(*VITERBI)
     for name, count in launches.items():
         check(count > 0, f'the {phase} never launched {name}')
 
@@ -990,14 +989,14 @@ def pitch_options_phase(card, entries, resources, errors):
 
         config = slice_config('mfcc')
         config['pitch'].update(options)
-        cuda_viterbi.reset_launches()
+        reset_counters()
         torch.cuda.synchronize()
         start = time.perf_counter()
         out = pipeline.extract_features(
             copy.deepcopy(config), batch, device='cuda')
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-        counted = dict(cuda_viterbi.LAUNCHES)
+        counted = launch_counts(*VITERBI)
         for name, count in counted.items():
             check(count > 0, f'the {phase} run at {lags} lags never launched '
                   f'{name}')
@@ -1033,7 +1032,6 @@ def frontends_pass(card, entries, passes=FRONTENDS):
     run."""
     from shennong_tpu_torch import Utterances
     from shennong_tpu_torch import pipeline
-    from shennong_tpu_torch.ops import cuda_viterbi
 
     utterances = Utterances(entries)
     audio_seconds = sum(utt.duration for utt in utterances)
@@ -1041,7 +1039,7 @@ def frontends_pass(card, entries, passes=FRONTENDS):
         phase = f'{features} pass'
         config = pipeline.get_default_config(
             features, with_cmvn=True, with_delta=delta)
-        cuda_viterbi.reset_launches()
+        reset_counters()
         torch.cuda.synchronize()
         start = time.perf_counter()
         out = pipeline.extract_features(
@@ -1062,7 +1060,7 @@ def frontends_pass(card, entries, passes=FRONTENDS):
             f'finite; cold run {cold:.4f} s; {RUNS} warm runs: wall median '
             f'{seconds:.4f} s (min {min(walls):.4f}, max {max(walls):.4f}), '
             f'warm xRT median {audio_seconds / seconds:.1f} on {card}; '
-            f'launches {dict(cuda_viterbi.LAUNCHES)}')
+            f'launches {launch_counts(*VITERBI)}')
         profile_layers(phase, config, utterances, seconds)
 
 
@@ -1155,7 +1153,6 @@ def long_audio(card, workdir, entries, resources):
     """
     from shennong_tpu_torch import Audio, Utterances
     from shennong_tpu_torch import pipeline
-    from shennong_tpu_torch.ops import cuda_viterbi
 
     phase = 'long audio'
     start = time.perf_counter()
@@ -1167,14 +1164,14 @@ def long_audio(card, workdir, entries, resources):
     utterances = Utterances([('hour', hour, 'spkH')] + entries[:16])
     audio_seconds = sum(utt.duration for utt in utterances)
     torch.cuda.reset_peak_memory_stats()
-    cuda_viterbi.reset_launches()
+    reset_counters()
     torch.cuda.synchronize()
     begin = time.perf_counter()
     out = pipeline.extract_features(
         copy.deepcopy(config), utterances, device='cuda')
     torch.cuda.synchronize()
     wall = time.perf_counter() - begin
-    launches = dict(cuda_viterbi.LAUNCHES)
+    launches = launch_counts(*VITERBI)
     for name, count in launches.items():
         check(count > 0, f'the {phase} run never launched {name}')
     for utt in utterances:
@@ -1259,7 +1256,7 @@ def chunked_against_whole(phase, path):
     bit-equal; pitch lags equal or ties of the whole program's costs
     (tests/lag_ties.py)."""
     from shennong_tpu_torch import Audio
-    from shennong_tpu_torch.ops import cuda_viterbi, resample
+    from shennong_tpu_torch.ops import resample
     from shennong_tpu_torch.processor.energy import EnergyProcessor
     from shennong_tpu_torch.processor.filterbank import FilterbankProcessor
     from shennong_tpu_torch.processor.mfcc import MfccProcessor
@@ -1305,15 +1302,15 @@ def chunked_against_whole(phase, path):
         'samples: linear_resample_chunked bit-equal to the whole-signal '
         'linear_resample')
 
-    cuda_viterbi.reset_launches()
+    reset_counters()
     routed = proc.process(audio, device='cuda').data
-    chunked_launches = dict(cuda_viterbi.LAUNCHES)
+    chunked_launches = launch_counts(*VITERBI)
     proc.AUTO_CHUNK_FRAMES = None
-    cuda_viterbi.reset_launches()
+    reset_counters()
     whole = proc.process(audio, device='cuda').data
-    check(cuda_viterbi.LAUNCHES == {
-        'viterbi_forward': 1, 'viterbi_backtrace': 1},
-        f'the whole pitch launched {cuda_viterbi.LAUNCHES}')
+    whole_launches = launch_counts(*VITERBI)
+    check(whole_launches == {'viterbi_forward': 1, 'viterbi_backtrace': 1},
+          f'the whole pitch launched {whole_launches}')
     differ, margin, nccf = assert_ties(
         audio.data, proc.options(), routed, whole, 'cuda')
     say(phase, f'12 min pitch {routed.shape}: chunked (launches '
@@ -1485,12 +1482,12 @@ def host_plane(card, workdir, entries):
         """One ``extract_features`` on the card, its launches counted
         from 0 just before it; returns (features, wall seconds)."""
         torch.cuda.synchronize()
-        cuda_viterbi.reset_launches()
+        reset_counters()
         start = time.perf_counter()
         out = pipeline.extract_features(
             copy.deepcopy(configuration), utts, device='cuda', **kwargs)
         torch.cuda.synchronize()
-        launches.update(cuda_viterbi.LAUNCHES)
+        launches.update(launch_counts(*VITERBI))
         return out, time.perf_counter() - start
 
     # 1 and 2: the counters and the process's pool over one run, njobs=4
@@ -1687,7 +1684,6 @@ def first_call(mode, directory):
     'warm'; writes ``<mode>.npz`` (the features) and ``<mode>.json``
     (the timings) into ``directory``."""
     from shennong_tpu_torch import Utterances, pipeline
-    from shennong_tpu_torch.ops import cuda_viterbi
 
     utterances = Utterances.load(
         os.path.join(directory, 'host_plane_index.txt'))
@@ -1699,14 +1695,14 @@ def first_call(mode, directory):
                                    device='cuda')
             timing['warmup_s'] = warm['seconds']
             timing['geometries'] = warm['geometries']
-        cuda_viterbi.reset_launches()
+        reset_counters()
         torch.cuda.synchronize()
         start = time.perf_counter()
         out = pipeline.extract_features(
             copy.deepcopy(config), utterances, device='cuda')
         torch.cuda.synchronize()
         timing['first_s'] = time.perf_counter() - start
-        timing['launches'] = dict(cuda_viterbi.LAUNCHES)
+        timing['launches'] = launch_counts(*VITERBI)
     out.save(os.path.join(directory, f'{mode}.npz'))
     with open(os.path.join(directory, f'{mode}.json'), 'w') as fp:
         json.dump(timing, fp)
@@ -1787,7 +1783,6 @@ def vtln_slice(card, entries):
     Viterbi launches of the timed runs."""
     from shennong_tpu_torch import Utterances
     from shennong_tpu_torch import pipeline
-    from shennong_tpu_torch.ops import cuda_viterbi
 
     phase = 'vtln slice'
     begin = time.perf_counter()
@@ -1808,7 +1803,7 @@ def vtln_slice(card, entries):
     torch.cuda.synchronize()
     cold = time.perf_counter() - start
 
-    cuda_viterbi.reset_launches()
+    reset_counters()
     walls, peaks = [], []
     with UploadCounter() as uploads:
         for _ in range(VTLN_RUNS):
@@ -1820,7 +1815,7 @@ def vtln_slice(card, entries):
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - start)
             peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
-    launches = dict(cuda_viterbi.LAUNCHES)
+    launches = launch_counts(*VITERBI)
     for name, count in launches.items():
         check(count > 0, f'the {phase} never launched {name}')
     batches = -(-NUM_UTTERANCES // 64)
@@ -2142,7 +2137,6 @@ def distributed_worker(rank, directory):
     results to ``directory``."""
     from shennong_tpu_torch import Utterances
     from shennong_tpu_torch.logger import null_logger
-    from shennong_tpu_torch.ops import cuda_viterbi
     from shennong_tpu_torch.parallel import distributed
 
     with open(os.path.join(directory, 'job.json')) as stream:
@@ -2169,9 +2163,9 @@ def distributed_worker(rank, directory):
 
     with energy_dither_off():
         timed('cold_s', extract)
-        cuda_viterbi.reset_launches()
+        reset_counters()
         features = timed('extract_s', extract)
-        report['launches'] = dict(cuda_viterbi.LAUNCHES)
+        report['launches'] = launch_counts(*VITERBI)
     raw = pitch_batched(distributed.shard_utterances(list(corpus)), 'cuda')
     arrays = {}
     for name in features:
@@ -2594,7 +2588,6 @@ def crepe_slice(card, workdir, entries):
     decode run."""
     from shennong_tpu_torch import Utterances
     from shennong_tpu_torch import pipeline
-    from shennong_tpu_torch.ops import viterbi
     from shennong_tpu_torch.processor.pitch_crepe import CrepePitchProcessor
 
     phase = 'crepe slice'
@@ -2635,14 +2628,14 @@ def crepe_slice(card, workdir, entries):
     device_config = crepe_config('device')
     pipeline.extract_features(copy.deepcopy(device_config),
                               Utterances(entries[:16]), device='cuda')
-    viterbi.reset_launches()
+    reset_counters()
     torch.cuda.synchronize()
     start = time.perf_counter()
     out = pipeline.extract_features(
         copy.deepcopy(device_config), utterances, device='cuda')
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    launches = dict(viterbi.LAUNCHES)
+    launches = launch_counts('banded_viterbi')
     check(launches['banded_viterbi'] > 0,
           'the device decode never launched banded_viterbi')
     check(len(out) == NUM_UTTERANCES and all(
@@ -3357,19 +3350,18 @@ def abx_phase(card):
     from torch.profiler import ProfilerActivity, profile
 
     from shennong_tpu_torch.eval import abx_bench
-    from shennong_tpu_torch.ops import dtw
 
     phase = 'abx'
     begin = time.perf_counter()
     ci = {}
     launches = 0
     for device in ('cuda', 'cpu'):
-        dtw.reset_launches()
+        reset_counters()
         start = time.perf_counter()
         ci[device] = abx_bench.benchmark(
             'ci', seed=0, features=('mfcc', 'rastaplp'), device=device)
         wall = time.perf_counter() - start
-        count = dtw.LAUNCHES['dtw']
+        count = launch_counts('dtw')['dtw']
         if device == 'cuda':
             launches += count
             check(count >= 6, f'abx ci: {count} DTW kernel launches')
@@ -3414,13 +3406,13 @@ def abx_phase(card):
         + ', '.join(f'{alphas[s]:.3f}:{warps[s]}'
                     for s in sorted(alphas, key=alphas.get)))
 
-    dtw.reset_launches()
+    reset_counters()
     start = time.perf_counter()
     full = abx_bench.benchmark('full', seed=0, features=('mfcc',),
                                device='cuda')
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    count = dtw.LAUNCHES['dtw']
+    count = launch_counts('dtw')['dtw']
     launches += count
     pairs = full['nsegments'] * (full['nsegments'] - 1) // 2
     conditions = len(full['errors']['across']['mfcc'])
@@ -3490,17 +3482,35 @@ def load_example(name):
     return module
 
 
+#: the kernels B1 and B2, by their counter names
+VITERBI = ('viterbi_forward', 'viterbi_backtrace')
+
+
+def reset_counters():
+    """Set every counter of the port to 0, the kernels' launch counts
+    (``counters['launches.<kernel>']``) among them."""
+    from shennong_tpu_torch.parallel.profiler import counters
+
+    counters.reset()
+
+
+def launch_counts(*kernels):
+    """The launches of each of ``kernels`` (``'viterbi_forward'``,
+    ``'banded_viterbi'``, ``'dtw'``, ...) since the counters' last
+    reset, 0 for a kernel never launched."""
+    from shennong_tpu_torch.parallel.profiler import counters
+
+    snap = counters.snapshot()
+    return {name: int(snap.get(f'launches.{name}', 0)) for name in kernels}
+
+
 def counted(run):
     """``run()``, with every kernel's launch count set to 0 just before
     it: (its result, the launches of each kernel during it)."""
-    from shennong_tpu_torch.ops import cuda_viterbi, dtw, viterbi
-
-    for module in (cuda_viterbi, viterbi, dtw):
-        module.reset_launches()
+    reset_counters()
     out = run()
     torch.cuda.synchronize()
-    return out, {**cuda_viterbi.LAUNCHES, **viterbi.LAUNCHES,
-                 **dtw.LAUNCHES}
+    return out, launch_counts(*VITERBI, 'banded_viterbi', 'dtw')
 
 
 def same_collections(ours, ref, what):

@@ -14,7 +14,10 @@ plain PyTorch version here, with the same arithmetic and rounding.
 Dispatch goes by the device of the input tensor: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel (or raises), any
 other device raises. Nothing falls back from the kernel to the plain
-version. Every kernel launch adds one to :data:`LAUNCHES`.
+version. Every kernel launch adds one to
+``counters['launches.viterbi_forward']`` or
+``counters['launches.viterbi_backtrace']``
+(:mod:`shennong_tpu_torch.parallel.profiler`).
 """
 
 import ctypes
@@ -28,6 +31,8 @@ import threading
 import numpy as np
 import torch
 
+from shennong_tpu_torch.parallel.profiler import counters
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SOURCE = os.path.join(os.path.dirname(_HERE), 'csrc', 'viterbi.cu')
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), '_build')
@@ -38,17 +43,8 @@ NVCC_FLAGS = (
     '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
     '-fmad=false', '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC')
 
-#: kernel launches since the last :func:`reset_launches`
-LAUNCHES = {'viterbi_forward': 0, 'viterbi_backtrace': 0}
-
 _lock = threading.Lock()
 _library = None
-
-
-def reset_launches():
-    """Set every kernel launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _nvcc():
@@ -282,7 +278,7 @@ def viterbi_forward(local_cost, nframes, inter_frame_factor):
             bsz, maxframes, nlags, _factor32(inter_frame_factor),
             plan['clusters'], stream)
     _raise_on_error(lib, code, 'viterbi_forward')
-    LAUNCHES['viterbi_forward'] += 1
+    counters.add('launches.viterbi_forward')
     return hist
 
 
@@ -340,7 +336,7 @@ def viterbi_backtrace(hist, nframes, inter_frame_factor):
             hist.data_ptr(), nframes.data_ptr(), best.data_ptr(),
             bsz, maxframes, nlags, _factor32(inter_frame_factor), stream)
     _raise_on_error(lib, code, 'viterbi_backtrace')
-    LAUNCHES['viterbi_backtrace'] += 1
+    counters.add('launches.viterbi_backtrace')
     return best
 
 

@@ -15,11 +15,12 @@ tensor takes :func:`dtw_divergences_plain`, the JAX package's row
 formulation written with PyTorch tensors; a CUDA tensor launches
 ``csrc/dtw.cu`` (built with ``nvcc`` at first use into ``_build/``,
 bound through a plain C interface with ctypes) or raises. Every kernel
-launch adds one to :data:`LAUNCHES`. It checks the frame counts, which
-makes the host wait for the card when they lie there;
+launch adds one to ``counters['launches.dtw']``
+(:mod:`shennong_tpu_torch.parallel.profiler`). It checks the frame
+counts, which makes the host wait for the card when they lie there;
 :func:`divergences_unchecked` is the same dispatch for counts a caller
-has already checked on the host (``eval.abx.pairwise_distances``), and
-never waits.
+has already checked on the host (``eval.abx.pairwise_distances``),
+and never waits.
 
 The two add in different orders (the plain version through row sums,
 the kernel cell by cell), so on real-valued costs they differ by a few
@@ -35,21 +36,14 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from shennong_tpu_torch.parallel.profiler import counters
+
 _SOURCE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     'csrc', 'dtw.cu')
 
-#: kernel launches since the last :func:`reset_launches`
-LAUNCHES = {'dtw': 0}
-
 _lock = threading.Lock()
 _library = None
-
-
-def reset_launches():
-    """Set every kernel launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _lexmin(cost_a, len_a, cost_b, len_b):
@@ -223,7 +217,7 @@ def divergences_unchecked(costs, nx, ny):
     nx, ny = _as_counts(nx, ny, bsz, device)
     div = torch.empty(bsz, dtype=torch.float32, device=device)
     launch_dtw(costs.contiguous(), nx, ny, div)
-    LAUNCHES['dtw'] += 1
+    counters.add('launches.dtw')
     return div
 
 

@@ -10,7 +10,9 @@ slice of rows on the device in float32: a CPU tensor takes its plain
 PyTorch version (a Python loop over frames), a CUDA tensor launches the
 hand-written kernel ``csrc/banded_viterbi.cu`` (built with ``nvcc`` at
 first use into ``_build/``, bound through a plain C interface with
-ctypes) or raises. Every kernel launch adds one to :data:`LAUNCHES`.
+ctypes) or raises. Every kernel launch adds one to
+``counters['launches.banded_viterbi']``
+(:mod:`shennong_tpu_torch.parallel.profiler`).
 """
 
 import ctypes
@@ -20,24 +22,17 @@ import threading
 import numpy as np
 import torch
 
+from shennong_tpu_torch.parallel.profiler import counters
+
 _SOURCE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     'csrc', 'banded_viterbi.cu')
-
-#: kernel launches since the last :func:`reset_launches`
-LAUNCHES = {'banded_viterbi': 0}
 
 #: the score outside the state range (the JAX package's padding value)
 _PAD = -3e38
 
 _lock = threading.Lock()
 _library = None
-
-
-def reset_launches():
-    """Set every kernel launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # ------------------------------------------------------- host, float64
@@ -379,5 +374,5 @@ def viterbi_banded_obs_batch(log_start, band, uniform_weight, self_weight,
     paths = torch.empty((bsz, maxframes), dtype=torch.int32, device=device)
     launch_banded(log_start.contiguous(), band.contiguous(), uniform, gain,
                   observations.contiguous(), nframes.contiguous(), paths)
-    LAUNCHES['banded_viterbi'] += 1
+    counters.add('launches.banded_viterbi')
     return paths

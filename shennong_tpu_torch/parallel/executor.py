@@ -21,18 +21,11 @@ on host threads and uploaded as int16 from pinned memory
   (``process_all_classes``) or reduces them to the classes' mapping
   moments on the device (``accumulate_lvtln_stats``).
 
-The host spans ``pass1.dispatch``/``pass1.wait`` (fused) and
-``batch.dispatch``/``batch.wait`` (stage-wise) mark enqueuing a batch
-and blocking on its outputs, ``batch.chunked`` the whole chunked
-extraction of one hour-scale utterance, ``vtln.moments`` the warp-class
-moments of one batch; they are profiler annotations
-(:func:`torch.profiler.record_function`), which cost nothing
-measurable when no profiler runs. The fused pass 1 and
-``BatchExecutor.process_all`` also add to the counters of
-:mod:`shennong_tpu_torch.parallel.profiler` (``dispatch_s``,
-``dispatches``, ``bytes_up``, ``fetch_s``, ``bytes_down``). Every
-consumer hands a batch's host buffer back to the stream's pool once the
-copy that reads it has finished.
+The executors' spans and counters (a batch's enqueue, the wait for its
+outputs, the fused path's set-up and drain, ...) are listed in
+:mod:`shennong_tpu_torch.parallel.profiler`. Every consumer hands a
+batch's host buffer back to the stream's pool once the copy that reads
+it has finished.
 """
 
 import collections
@@ -52,7 +45,7 @@ from shennong_tpu_torch.ops.framing import num_frames
 from shennong_tpu_torch.parallel import stream
 from shennong_tpu_torch.parallel.fused import (
     FETCH_DTYPES, pack_payload, pass_one_program)
-from shennong_tpu_torch.parallel.profiler import counters
+from shennong_tpu_torch.parallel.profiler import counters, span
 from shennong_tpu_torch.processor.base import fresh_generator
 
 
@@ -155,18 +148,19 @@ class FusedPipelineExecutor:
         drained, instead of being collected (the returned collections
         stay empty). An exception it raises stops the run at once.
         """
-        utterances = list(utterances)
-        _check_sample_rates(utterances, self.feat_proc)
-        if self.pitch_post is not None:
-            self.pitch_post._validate_flags()
+        with span('pass1.plan', 'plan_s'):
+            utterances = list(utterances)
+            _check_sample_rates(utterances, self.feat_proc)
+            if self.pitch_post is not None:
+                self.pitch_post._validate_flags()
 
-        static = self._static_opts()
-        generator = self._generator(static)
-        frame_opts = static['feat_opts'].frame
-        # without warps every batch shares one mel bank, uploaded once
-        shared_mel = (None if self.warps is not None
-                      else _mel_inputs(self.feat_proc, None, 0, None,
-                                       self.device))
+            static = self._static_opts()
+            generator = self._generator(static)
+            frame_opts = static['feat_opts'].frame
+            # without warps every batch shares one mel bank, uploaded once
+            shared_mel = (None if self.warps is not None
+                          else _mel_inputs(self.feat_proc, None, 0, None,
+                                           self.device))
         cuda = self.device.type == 'cuda'
 
         features = FeaturesCollection()
@@ -175,8 +169,7 @@ class FusedPipelineExecutor:
             FeaturesCollection() if self.pitch_proc is not None else None)
 
         def dispatch(names, signals, nsamples):
-            with torch.profiler.record_function('pass1.dispatch'), \
-                    counters.timed('dispatch_s'):
+            with span('pass1.dispatch', 'dispatch_s'):
                 stream.count_upload(signals, nsamples)
                 counters.add('dispatches')
                 return _dispatch(names, signals, nsamples)
@@ -199,17 +192,19 @@ class FusedPipelineExecutor:
             out = pass_one_program(
                 dev_signals, dev_nsamples, mel_weights, equal_loudness,
                 device=self.device, generator=generator, **kwargs)
-            layout = _payload_layout(out, self.fetch_dtype)
-            payload = pack_payload(
-                [out[key] for key, _, _ in layout], dtype=self.fetch_dtype)
-            if not cuda:
-                return names, nsamples, layout, payload, None, signals
-            # one asynchronous copy into a pinned buffer; the event marks
-            # it done (and the input upload with it)
-            host = stream.payloads.take(payload.shape, pin_memory=True)
-            host.copy_(payload, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
+            with span('pass1.pack'):
+                layout = _payload_layout(out, self.fetch_dtype)
+                payload = pack_payload(
+                    [out[key] for key, _, _ in layout],
+                    dtype=self.fetch_dtype)
+                if not cuda:
+                    return names, nsamples, layout, payload, None, signals
+                # one asynchronous copy into a pinned buffer; the event
+                # marks it done (and the input upload with it)
+                host = stream.payloads.take(payload.shape, pin_memory=True)
+                host.copy_(payload, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
             return names, nsamples, layout, host, done, signals
 
         def drain(names, nsamples, layout, payload, done, signals):
@@ -218,6 +213,12 @@ class FusedPipelineExecutor:
                     with torch.profiler.record_function('pass1.wait'):
                         done.synchronize()
                 host = _unpack_payload(payload, layout)
+            with span('pass1.drain', 'drain_s'):
+                land(names, nsamples, host, payload, signals)
+
+        def land(names, nsamples, host, payload, signals):
+            """Hand a fetched batch's utterances out, then return its
+            buffers to their pools."""
             counters.add('bytes_down', payload.numel())
             # the event follows the input upload too
             stream.recycle(signals)
@@ -456,14 +457,12 @@ class BatchExecutor:
             signal_cache, utterances, self.batch_size,
             pin_memory=self.device.type == 'cuda', njobs=njobs)
         for names, signals, nsamples, _ in source:
-            with torch.profiler.record_function('batch.dispatch'), \
-                    counters.timed('dispatch_s'):
+            with span('batch.dispatch', 'dispatch_s'):
                 stream.count_upload(signals, nsamples)
                 counters.add('dispatches')
                 out = self._run_batch(
                     names, signals, nsamples, vtln_warp, **random)
-            with torch.profiler.record_function('batch.wait'), \
-                    counters.timed('fetch_s'):
+            with span('batch.wait', 'fetch_s'):
                 feats = out.cpu().numpy()
             counters.add('bytes_down', feats.nbytes)
             # the fetch ordered after the upload on the stream

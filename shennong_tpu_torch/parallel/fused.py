@@ -30,6 +30,7 @@ import torch
 from shennong_tpu_torch.ops import pitch as pitch_ops
 from shennong_tpu_torch.ops import plp, postops, spectral
 from shennong_tpu_torch.ops.framing import frame_counts
+from shennong_tpu_torch.parallel.profiler import span
 
 
 def pass_one_program(signals, nsamples, mel_weights, equal_loudness, kind,
@@ -64,55 +65,61 @@ def pass_one_program(signals, nsamples, mel_weights, equal_loudness, kind,
 
     Returns a dict with ``feats`` [B, F, D] and, when configured,
     ``vad`` [B, F] uint8 and ``pitch`` [B, Fp, P], all on ``device``.
+    The host enqueue of each stage runs under a span (``pass1.front``,
+    ``pass1.vad``, ``pass1.pitch``; see
+    :mod:`shennong_tpu_torch.parallel.profiler`).
     """
     device = torch.device(device)
     signals = signals.to(device=device, dtype=torch.float32)
     nsamples = nsamples.to(device=device, dtype=torch.int32)
 
-    if kind == 'mfcc':
-        feats = spectral.mfcc_batch(
-            signals, nsamples, mel_weights, feat_opts, nframes_max,
-            generator=generator)
-    elif kind == 'filterbank':
-        feats = spectral.fbank_batch(
-            signals, nsamples, mel_weights, feat_opts, nframes_max,
-            generator=generator)
-    elif kind == 'plp':
-        feats = plp.plp_batch(
-            signals, nsamples, mel_weights, equal_loudness, feat_opts,
-            nframes_max, generator=generator)
-    elif kind == 'spectrogram':
-        feats = spectral.spectrogram_batch(
-            signals, nsamples, feat_opts, nframes_max, generator=generator)
-    else:
-        raise ValueError(f'unsupported fused pass-1 features: {kind}')
+    with span('pass1.front', 'dispatch_front_s'):
+        if kind == 'mfcc':
+            feats = spectral.mfcc_batch(
+                signals, nsamples, mel_weights, feat_opts, nframes_max,
+                generator=generator)
+        elif kind == 'filterbank':
+            feats = spectral.fbank_batch(
+                signals, nsamples, mel_weights, feat_opts, nframes_max,
+                generator=generator)
+        elif kind == 'plp':
+            feats = plp.plp_batch(
+                signals, nsamples, mel_weights, equal_loudness, feat_opts,
+                nframes_max, generator=generator)
+        elif kind == 'spectrogram':
+            feats = spectral.spectrogram_batch(
+                signals, nsamples, feat_opts, nframes_max, generator=generator)
+        else:
+            raise ValueError(f'unsupported fused pass-1 features: {kind}')
     out = {'feats': feats}
 
     if energy_opts is not None:
-        log_energy = spectral.energy_batch(
-            signals, nsamples, energy_opts, nframes_max,
-            compression=compression, generator=generator)
-        threshold, mean_scale, context, proportion = vad_opts
-        out['vad'] = postops.compute_vad_energy(
-            log_energy, frame_counts(nsamples, energy_opts.frame),
-            energy_threshold=threshold, energy_mean_scale=mean_scale,
-            frames_context=context, proportion_threshold=proportion)
+        with span('pass1.vad'):
+            log_energy = spectral.energy_batch(
+                signals, nsamples, energy_opts, nframes_max,
+                compression=compression, generator=generator)
+            threshold, mean_scale, context, proportion = vad_opts
+            out['vad'] = postops.compute_vad_energy(
+                log_energy, frame_counts(nsamples, energy_opts.frame),
+                energy_threshold=threshold, energy_mean_scale=mean_scale,
+                frames_context=context, proportion_threshold=proportion)
 
     if pitch_opts is not None:
-        raw_pitch = pitch_ops.compute_pitch(
-            signals, nsamples, pitch_opts, pitch_frames_max)
-        pitch_frames = pitch_ops.pitch_num_frames_device(
-            pitch_ops.resampled_lengths(nsamples, pitch_opts), pitch_opts)
-        noise = None
-        if with_noise:
-            if generator is None:
-                raise ValueError(
-                    'the pitch noise is on but no generator was provided')
-            noise = torch.randn(
-                raw_pitch.shape[:2], generator=generator,
-                dtype=torch.float32, device=device)
-        out['pitch'] = pitch_ops.process_pitch(
-            raw_pitch, pitch_frames, post_opts, noise=noise)
+        with span('pass1.pitch', 'dispatch_pitch_s'):
+            raw_pitch = pitch_ops.compute_pitch(
+                signals, nsamples, pitch_opts, pitch_frames_max)
+            pitch_frames = pitch_ops.pitch_num_frames_device(
+                pitch_ops.resampled_lengths(nsamples, pitch_opts), pitch_opts)
+            noise = None
+            if with_noise:
+                if generator is None:
+                    raise ValueError(
+                        'the pitch noise is on but no generator was provided')
+                noise = torch.randn(
+                    raw_pitch.shape[:2], generator=generator,
+                    dtype=torch.float32, device=device)
+            out['pitch'] = pitch_ops.process_pitch(
+                raw_pitch, pitch_frames, post_opts, noise=noise)
 
     return out
 

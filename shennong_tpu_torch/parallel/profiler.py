@@ -6,8 +6,82 @@ Counterpart of :mod:`shennong_tpu.parallel.profiler`:
   reported through a logger (x real-time per stage);
 - :class:`Counters` and the process-global :data:`counters`: the cost
   centres of a corpus run, written by the host layer's seams;
+- :func:`span`: a profiler annotation that may also add its wall
+  seconds to a counter;
 - :func:`trace`: a context manager around :mod:`torch.profiler`
   writing a trace that TensorBoard and Perfetto read.
+
+This docstring is the one list of the port's counters and spans. A span
+is a :func:`torch.profiler.record_function`, on the profiler's clock
+with the kernels it launches (nothing measurable when no profiler
+runs); a counter is always on. Seconds are wall seconds of the thread
+that runs the seam ("thread seconds" where that thread overlaps the
+caller's).
+
+Counters (key: seam; span over the same interval, if any):
+
+- ``calls``, ``call_s``: one per :func:`shennong_tpu_torch.pipeline.
+  extract_features` call, and its whole body (span
+  ``extract_features``);
+- ``plan_s``: the host work before the first batch: the configuration,
+  ``PipelineManager`` and its header scan, the path choice
+  (``pipeline.plan`` in ``extract_features``, ``_pass_one`` and
+  ``_fused_pass_one``); the fused executor's sample-rate scan, options
+  and shared mel bank (``pass1.plan``, ``FusedPipelineExecutor.run``);
+  the batch plan's header scan (``stream.plan``,
+  ``parallel.stream.plan_batches``);
+- ``decode_s``: host audio decode into the batch buffers (``decode``,
+  ``parallel.stream.decode_batch``); thread seconds of the stream's
+  pool threads, overlapped with the device work;
+- ``decode_wait_s``: the consumer blocked on the next decoded batch
+  (``decode.wait``, ``parallel.stream.stream_batches``);
+- ``dispatch_s`` / ``dispatches``: enqueuing a batch's upload and
+  program, and the count of those programs, one per batch of the fused
+  pass 1 (``pass1.dispatch``) and of ``BatchExecutor.process_all``
+  (``batch.dispatch``); the JAX package counts two per fused batch,
+  adding its payload packing;
+- ``dispatch_front_s``, ``dispatch_pitch_s``: inside ``dispatch_s``, the
+  enqueue of the fused program's features front end (``pass1.front``)
+  and of its pitch, noise draw and post-processing included
+  (``pass1.pitch``; ``parallel.fused.pass_one_program``);
+- ``fetch_s`` / ``bytes_down``: blocked on a batch's outputs and
+  viewing them (the fused path's event, span ``pass1.wait``, and
+  payload unpacking; the stage-wise ``.cpu()``, ``batch.wait``), and
+  the bytes fetched;
+- ``drain_s``: the fused executor's host work on a landed batch after
+  ``fetch_s``: each utterance's copies, CMVN statistics and hand-off to
+  pass 2, up to the payload's return to its pool (``pass1.drain``);
+- ``bytes_up``: host-to-device bytes of the decoded batches (int16
+  signals plus int32 ``nsamples``); a batch replayed from a
+  ``SignalCache`` uploads nothing;
+- ``pass2_s``: pass 2 of a group (CMVN apply, deltas, pitch
+  concatenation), thread seconds: the fused path runs it on the thread
+  ``pass-two`` while pass 1 goes on (the span ``pass2`` lies inside);
+- ``pass2_cmvn_s``, ``pass2_delta_s``, ``pass2_concat_s``: inside
+  ``pass2``, each step over the group (``pass2.cmvn``, ``pass2.delta``,
+  ``pass2.concat``; ``pipeline._pass_two``);
+- ``pass2_utts``: utterances pass 2's worker finished;
+  ``pass2_backlog_utts``: those handed to it and not yet finished when
+  the caller starts to wait for it, one add per call;
+- ``pass2_join_s``: the caller waiting for pass 2's worker after pass 1
+  (``pass2.join``, ``pipeline._pass_two_worker``);
+- ``launches.<kernel>``: the hand-written kernels' launches,
+  ``launches.viterbi_forward`` and ``launches.viterbi_backtrace``
+  (``ops.cuda_viterbi``), ``launches.banded_viterbi``
+  (``ops.viterbi``), ``launches.dtw`` (``ops.dtw``).
+
+``plan_s``, ``decode_wait_s``, ``dispatch_s``, ``fetch_s``, ``drain_s``
+and ``pass2_join_s`` are disjoint intervals of a fused call's thread,
+so their sum is at most ``call_s``.
+
+Spans with no counter: ``pass1.vad`` (the fused program's energy and
+VAD), ``pass1.pack`` (its payload packing, the pinned copy and its
+event); ``batch.chunked`` (an hour-scale utterance's chunked
+extraction), ``vtln.moments``; the stages ``plp.rasta``,
+``plp.durbin``, ``crepe.load``, ``crepe.decode``, ``crepe.cnn``,
+``crepe.post``, ``bottleneck.frontend``, ``bottleneck.forward``,
+``ubm.frontend``, ``ubm.init``, ``ubm.em``, ``vtln.solve``,
+``vtln.gselect``, ``vtln.rounds``.
 """
 
 import contextlib
@@ -96,31 +170,8 @@ class Counters:
     """Process-global performance counters for the extraction plane.
 
     A benchmark reads these to split a corpus run into its cost centres
-    without a profiler. Keys written by the instrumented seams:
-
-    - ``decode_s``: host audio decode into the batch buffers
-      (:func:`shennong_tpu_torch.parallel.stream.decode_batch`; thread
-      seconds: decoding runs on the stream's pool threads, overlapped
-      with the device work, so it can exceed its wall share);
-    - ``dispatch_s`` / ``dispatches``: wall seconds of enqueuing a
-      batch's upload and program, and the count of those programs: one
-      per batch of the fused pass 1 and of ``BatchExecutor.process_all``
-      (the JAX package counts two per fused batch, adding its payload
-      packing, which the port does not have);
-    - ``fetch_s`` / ``bytes_down``: wall seconds blocked on a batch's
-      outputs (the CUDA event of their copy to pinned memory, or the
-      ``.cpu()`` of the stage-wise path), and the bytes fetched;
-    - ``bytes_up``: host-to-device bytes of the batches decoded for an
-      upload (int16 signals plus the int32 ``nsamples``); a batch
-      replayed from a ``SignalCache`` uploads nothing;
-    - ``pass2_s``: host pass 2 (CMVN apply, deltas, pitch
-      concatenation). Thread seconds, like ``decode_s``: the fused
-      path runs it per CMVN group on the thread ``pass-two`` while
-      pass 1 goes on, so it can exceed its wall share.
-
-    ``dispatch_s + fetch_s`` is the wall time spent on the device path
-    from the host's side; the device's own busy time comes from a
-    :func:`trace`.
+    without a profiler; the module's docstring lists the keys that the
+    instrumented seams write.
     """
 
     def __init__(self):
@@ -150,3 +201,13 @@ class Counters:
 
 #: The process-global counter set (reset it around a measured region).
 counters = Counters()
+
+
+@contextlib.contextmanager
+def span(name, key=None):
+    """Annotate the block as ``name`` on the profiler's timeline and,
+    with ``key``, add its wall seconds to ``counters[key]``."""
+    timed = (contextlib.nullcontext() if key is None
+             else counters.timed(key))
+    with torch.profiler.record_function(name), timed:
+        yield

@@ -22,6 +22,9 @@ whatever the corpus size.
 Batches are ``(names, signals [B, T], nsamples [B] int32, nvalid)``
 with ``signals`` an int16 tensor: on the CPU when decoded, on the
 cache's device when replayed.
+
+Its counters and spans (the plan, the decode, the wait for it, the
+bytes up) are listed in :mod:`shennong_tpu_torch.parallel.profiler`.
 """
 
 import collections
@@ -36,7 +39,7 @@ from shennong_tpu_torch import native
 from shennong_tpu_torch.audio import Audio
 from shennong_tpu_torch.ops.framing import bucket_size
 from shennong_tpu_torch.parallel import batch as batching
-from shennong_tpu_torch.parallel.profiler import counters
+from shennong_tpu_torch.parallel.profiler import counters, span
 
 
 class _BufferPool:
@@ -244,11 +247,13 @@ def streamed_order(utterances):
 
 def plan_batches(utterances, batch_size):
     """Partition utterances into batches of at most ``batch_size``,
-    in :func:`streamed_order`. Returns a list of lists."""
-    utterances = list(utterances)
-    order = streamed_order(utterances)
-    return [[utterances[i] for i in order[start:start + batch_size]]
-            for start in range(0, len(order), batch_size)]
+    in :func:`streamed_order`. Returns a list of lists. Adds its time to
+    ``counters['plan_s']``."""
+    with span('stream.plan', 'plan_s'):
+        utterances = list(utterances)
+        order = streamed_order(utterances)
+        return [[utterances[i] for i in order[start:start + batch_size]]
+                for start in range(0, len(order), batch_size)]
 
 
 def decode_batch(chunk, pin_memory, njobs=4):
@@ -259,7 +264,7 @@ def decode_batch(chunk, pin_memory, njobs=4):
     row zero past its count. Mono PCM16 WAVs decode natively; other
     audio loads on ``njobs`` threads. Adds its time to
     ``counters['decode_s']``."""
-    with counters.timed('decode_s'):
+    with span('decode', 'decode_s'):
         return _decode_batch(chunk, pin_memory, njobs)
 
 
@@ -293,7 +298,8 @@ def stream_batches(utterances, batch_size, pin_memory, njobs=4, depth=2):
     next batches decode on host threads while the consumer works on
     the current one. ``njobs`` bounds each batch's Python decode (the
     native loader has its own 8 threads). The consumer recycles each
-    batch's signals once their device copy is done."""
+    batch's signals once their device copy is done. The time it blocks
+    on the next decoded batch adds to ``counters['decode_wait_s']``."""
     plans = plan_batches(utterances, batch_size)
     depth = max(1, int(depth))
     with concurrent.futures.ThreadPoolExecutor(max_workers=depth) as pool:
@@ -301,7 +307,8 @@ def stream_batches(utterances, batch_size, pin_memory, njobs=4, depth=2):
                    for chunk in plans[:depth]]
         nextp = len(pending)
         while pending:
-            batch = pending.pop(0).result()
+            with span('decode.wait', 'decode_wait_s'):
+                batch = pending.pop(0).result()
             if nextp < len(plans):
                 pending.append(pool.submit(
                     decode_batch, plans[nextp], pin_memory, njobs))

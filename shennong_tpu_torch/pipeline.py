@@ -37,10 +37,11 @@ from the sample rates and the frame counts, as the reference does:
   rate.
 
 Pass 2 (CMVN statistics and their application, deltas, the pitch
-concatenation) is the same on every path, and adds its thread seconds
-to ``counters['pass2_s']``
-(:mod:`shennong_tpu_torch.parallel.profiler`). :func:`warmup` pays a
-cold process's start-up costs before the first real extraction.
+concatenation) is the same on every path. :func:`warmup` pays a cold
+process's start-up costs before the first real extraction. The
+counters and spans of a call (its planning, pass 2's steps and the
+wait for them, ...) are listed in
+:mod:`shennong_tpu_torch.parallel.profiler`.
 """
 
 import contextlib
@@ -59,7 +60,7 @@ from shennong_tpu_torch.ops.postops import (
     accumulate_cmvn_stats, compute_deltas_host)
 from shennong_tpu_torch.parallel.executor import (
     BatchExecutor, FusedPipelineExecutor, check_fetch_dtype)
-from shennong_tpu_torch.parallel.profiler import counters
+from shennong_tpu_torch.parallel.profiler import counters, span
 from shennong_tpu_torch.parallel.stream import SignalCache
 from shennong_tpu_torch.pipeline_manager import PipelineManager
 from shennong_tpu_torch.processor.base import fresh_generator
@@ -198,32 +199,35 @@ def extract_features(configuration, utterances, warps=None, njobs=1,
     -------
     features : :class:`~shennong_tpu.features_collection.FeaturesCollection`
     """
-    njobs = get_njobs(njobs, log=log)
-    fetch_dtype = check_fetch_dtype(fetch_dtype)
-    config = init_config(configuration, log=log)
-    log.info(
-        'detected format for utterances index is: %s',
-        utterances.format(type=str))
-    if warps:
-        warps = _init_warps(warps, config, utterances, log)
-    if generator is None:
-        generator = fresh_generator(device)
+    counters.add('calls')
+    with span('extract_features', 'call_s'):
+        with span('pipeline.plan', 'plan_s'):
+            njobs = get_njobs(njobs, log=log)
+            fetch_dtype = check_fetch_dtype(fetch_dtype)
+            config = init_config(configuration, log=log)
+            log.info(
+                'detected format for utterances index is: %s',
+                utterances.format(type=str))
+            if warps:
+                warps = _init_warps(warps, config, utterances, log)
+            if generator is None:
+                generator = fresh_generator(device)
+            manager = PipelineManager(config, utterances, log=log)
 
-    manager = PipelineManager(config, utterances, log=log)
-    cache = None
-    if warps:
-        manager.warps = warps
-    elif 'vtln' in config:
-        cache = SignalCache(device=device)
-        manager.warps = _train_warps(
-            manager, utterances, device, generator, cache, njobs)
-    utterances = list(utterances)
-    results = {}
-    with _pass_two_worker(manager, log, results) as pass_two:
-        _pass_one(manager, utterances, device, generator, log, cache,
-                  pass_two, njobs, fetch_dtype)
-    return FeaturesCollection(
-        {utt.name: results[utt.name] for utt in utterances})
+        cache = None
+        if warps:
+            manager.warps = warps
+        elif 'vtln' in config:
+            cache = SignalCache(device=device)
+            manager.warps = _train_warps(
+                manager, utterances, device, generator, cache, njobs)
+        utterances = list(utterances)
+        results = {}
+        with _pass_two_worker(manager, log, results) as pass_two:
+            _pass_one(manager, utterances, device, generator, log, cache,
+                      pass_two, njobs, fetch_dtype)
+        return FeaturesCollection(
+            {utt.name: results[utt.name] for utt in utterances})
 
 
 @contextlib.contextmanager
@@ -235,10 +239,15 @@ def _pass_two_worker(manager, log, results):
 
     ``submit`` raises a failure of the worker, so pass 1 stops at its
     next call (the fused path calls it for every drained utterance);
-    the worker is joined on every exit, and its failure raised.
+    the worker is joined on every exit, and its failure raised. The
+    join adds to ``counters['pass2_join_s']``, and the utterances not
+    yet finished when it starts to ``counters['pass2_backlog_utts']``.
     """
     work = queue.SimpleQueue()
     failure = []
+    # utterances handed to the worker (written by the caller) and
+    # finished by it (written by the worker)
+    submitted, finished = [0], [0]
 
     def worker():
         while True:
@@ -251,11 +260,14 @@ def _pass_two_worker(manager, log, results):
             except BaseException as error:  # raised on the caller's thread
                 failure.append(error)
                 return
+            finished[0] += len(triplets)
+            counters.add('pass2_utts', len(triplets))
 
     def submit(triplets):
         if failure:
             raise failure[0]
         if triplets:
+            submitted[0] += len(triplets)
             work.put(triplets)
 
     thread = threading.Thread(target=worker, name='pass-two', daemon=True)
@@ -264,7 +276,9 @@ def _pass_two_worker(manager, log, results):
         yield submit
     finally:
         work.put(None)
-        thread.join()
+        counters.add('pass2_backlog_utts', submitted[0] - finished[0])
+        with span('pass2.join', 'pass2_join_s'):
+            thread.join()
     if failure:
         raise failure[0]
 
@@ -284,15 +298,18 @@ def _pass_one(manager, utterances, device, generator, log, cache, on_group,
     training uploaded, or is None; ``njobs`` bounds the audio decode;
     ``fetch_dtype`` is the fused path's fetch precision.
     """
-    rates = set(
-        meta.sample_rate for meta in manager.audio_metadata.values())
-    if len(rates) != 1 or manager.features == 'bottleneck':
+    with span('pipeline.plan', 'plan_s'):
+        rates = set(
+            meta.sample_rate for meta in manager.audio_metadata.values())
+        per_utterance = len(rates) != 1 or manager.features == 'bottleneck'
+        fused = not per_utterance and _fits_fused(manager, utterances)
+    if per_utterance:
         log.debug('per-utterance pass 1 of %s over %d sample rates',
                   manager.features, len(rates))
         on_group([
             _extract_pass_one(utt, manager, device, generator, log)
             for utt in utterances])
-    elif _fits_fused(manager, utterances):
+    elif fused:
         _fused_pass_one(
             manager, utterances, device, generator, log, cache, on_group,
             njobs, fetch_dtype)
@@ -516,27 +533,28 @@ def _fused_pass_one(manager, utterances, device, generator, log, cache,
     first = utterances[0]
     with_vad = 'cmvn' in config and config['cmvn']['with_vad']
     with_pitch = 'pitch' in config
-    executor = FusedPipelineExecutor(
-        manager.make('features', first),
-        warps=dict(manager.warps) if manager.warps else None,
-        energy_proc=manager.make('energy', first) if with_vad else None,
-        vad_proc=manager.make('vad') if with_vad else None,
-        pitch_proc=manager.make('pitch', first) if with_pitch else None,
-        pitch_post=manager.make('pitch_post') if with_pitch else None,
-        device=device, generator=generator, signal_cache=cache,
-        fetch_dtype=fetch_dtype)
-
     with_cmvn = 'cmvn' in config
-    by_name = {utt.name: utt for utt in utterances}
-    # CMVN group -> member names in utterance order (the accumulation
-    # order); without CMVN every utterance is its own group
-    groups = {}
-    for utt in utterances:
-        key = manager.cmvn_key(utt) if with_cmvn else utt.name
-        groups.setdefault(key, []).append(utt.name)
-    group_of = {
-        name: key for key, names in groups.items() for name in names}
-    pending = {key: len(names) for key, names in groups.items()}
+    with span('pipeline.plan', 'plan_s'):
+        executor = FusedPipelineExecutor(
+            manager.make('features', first),
+            warps=dict(manager.warps) if manager.warps else None,
+            energy_proc=manager.make('energy', first) if with_vad else None,
+            vad_proc=manager.make('vad') if with_vad else None,
+            pitch_proc=manager.make('pitch', first) if with_pitch else None,
+            pitch_post=manager.make('pitch_post') if with_pitch else None,
+            device=device, generator=generator, signal_cache=cache,
+            fetch_dtype=fetch_dtype)
+
+        by_name = {utt.name: utt for utt in utterances}
+        # CMVN group -> member names in utterance order (the accumulation
+        # order); without CMVN every utterance is its own group
+        groups = {}
+        for utt in utterances:
+            key = manager.cmvn_key(utt) if with_cmvn else utt.name
+            groups.setdefault(key, []).append(utt.name)
+        group_of = {
+            name: key for key, names in groups.items() for name in names}
+        pending = {key: len(names) for key, names in groups.items()}
     landed, stats = {}, {}
 
     def on_utterance(name, features, vad, pitch):
@@ -677,31 +695,44 @@ def _pass_two(manager, triplets, log, tolerance=2):
 
     ``triplets`` are (utterance, features, pitch-or-None); returns a
     dict name -> final Features. Runs under the profiler annotation
-    ``pass2``.
+    ``pass2``, each step over the whole group under its own
+    (``pass2.cmvn``, ``pass2.delta``, ``pass2.concat``).
     """
     config = manager.config
     delta = manager.make('delta') if 'delta' in config else None
-    finished = {}
+    utterances = [utterance for utterance, _, _ in triplets]
+    features = [feats for _, feats, _ in triplets]
+    pitches = [pitch for _, _, pitch in triplets]
     with torch.profiler.record_function('pass2'):
-        for utterance, features, pitch in triplets:
-            if 'cmvn' in config:
-                log.debug('%s: apply cmvn', utterance.name)
-                features = manager.apply_cmvn(utterance, features)
-            if delta is not None:
-                log.debug('%s: apply delta', utterance.name)
-                out, = compute_deltas_host(
-                    [features.data], order=delta.order, window=delta.window)
-                # validate=False: the times are untouched and the delta
-                # filter of finite input is finite
-                features = Features(
-                    out.astype(features.dtype, copy=False), features.times,
-                    delta.get_properties(features), validate=False)
-            if pitch is not None:
-                log.debug('%s: concatenate pitch', utterance.name)
-                features = features.concatenate(
-                    pitch, tolerance=tolerance, log=log, validate=False)
-            finished[utterance.name] = features
-    return finished
+        if 'cmvn' in config:
+            with span('pass2.cmvn', 'pass2_cmvn_s'):
+                for index, utterance in enumerate(utterances):
+                    log.debug('%s: apply cmvn', utterance.name)
+                    features[index] = manager.apply_cmvn(
+                        utterance, features[index])
+        if delta is not None:
+            with span('pass2.delta', 'pass2_delta_s'):
+                for index, utterance in enumerate(utterances):
+                    log.debug('%s: apply delta', utterance.name)
+                    data = features[index]
+                    out, = compute_deltas_host(
+                        [data.data], order=delta.order, window=delta.window)
+                    # validate=False: the times are untouched and the
+                    # delta filter of finite input is finite
+                    features[index] = Features(
+                        out.astype(data.dtype, copy=False), data.times,
+                        delta.get_properties(data), validate=False)
+        if any(pitch is not None for pitch in pitches):
+            with span('pass2.concat', 'pass2_concat_s'):
+                for index, utterance in enumerate(utterances):
+                    if pitches[index] is None:
+                        continue
+                    log.debug('%s: concatenate pitch', utterance.name)
+                    features[index] = features[index].concatenate(
+                        pitches[index], tolerance=tolerance, log=log,
+                        validate=False)
+    return {utterance.name: feats
+            for utterance, feats in zip(utterances, features)}
 
 
 def init_config(config, log=get_logger('pipeline', 'warning')):

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import dtw_near_tie
+from chip_smoke import dtw_near_tie, launch_counts, reset_counters
 from shennong_tpu.alignment import Alignment as JAlignment
 from shennong_tpu.eval import abx as jabx
 from shennong_tpu.features import Features as JFeatures
@@ -262,10 +262,10 @@ def test_dtw_identical_segments_are_closest():
 
 def test_cpu_tensors_never_launch_the_kernel():
     xs, nx, ys, ny = ragged_pairs([(5, 7), (24, 24)], 13, seed=3)
-    dtw.reset_launches()
+    reset_counters()
     port_dtw(xs, nx, ys, ny, 'cosine')
     abx.pairwise_distances([xs[0, :5], ys[0, :7], xs[1]], device='cpu')
-    assert dtw.LAUNCHES == {'dtw': 0}
+    assert launch_counts('dtw') == {'dtw': 0}
 
 
 def test_dtw_wrapper_checks_its_inputs():

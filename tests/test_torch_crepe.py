@@ -29,6 +29,8 @@ import torch
 
 import jax.numpy as jnp
 
+from chip_smoke import launch_counts, reset_counters
+
 from shennong_tpu import Utterances as JUtterances
 from shennong_tpu import pipeline as jpipeline
 from shennong_tpu.audio import Audio as JAudio
@@ -200,11 +202,11 @@ def test_decode_salience_chunk_matches_jax(smooth):
     log_start, _, uniform, self_w, band = \
         pitch_crepe._crepe_prior_logs(360)
     mapping = crepe.cents_mapping()
-    viterbi.reset_launches()
+    reset_counters()
     ours = crepe.decode_salience_chunk(
         torch.from_numpy(sal), torch.from_numpy(nframes), log_start, band,
         uniform, self_w, mapping, viterbi=smooth).numpy()
-    assert viterbi.LAUNCHES['banded_viterbi'] == 0
+    assert launch_counts('banded_viterbi') == {'banded_viterbi': 0}
     ref = np.asarray(jcrepe.decode_salience_chunk(
         jnp.asarray(sal), jnp.asarray(nframes), log_start, band, uniform,
         self_w, mapping, viterbi=smooth))
@@ -284,11 +286,11 @@ def test_banded_obs_batch_plain_matches_jax(seed):
     obs = np.clip(obs, 0, 359).astype(np.int32)
     nframes = np.array([300, 299, 171, 2, 1, 0], np.int32)
 
-    viterbi.reset_launches()
+    reset_counters()
     ours = viterbi.viterbi_banded_obs_batch(
         log_start, band, uniform, self_w, torch.from_numpy(obs),
         torch.from_numpy(nframes), 11)
-    assert viterbi.LAUNCHES['banded_viterbi'] == 0
+    assert launch_counts('banded_viterbi') == {'banded_viterbi': 0}
     ref = np.asarray(jviterbi.viterbi_banded_obs_batch(
         log_start, band, uniform, self_w, jnp.asarray(obs),
         jnp.asarray(nframes), 11))
@@ -428,10 +430,10 @@ def utterances_of(wav_file):
 def test_process_all_matches_jax(wav_file, decode, smooth, monkeypatch):
     ours_utts, ref_utts = utterances_of(wav_file)
     kwargs = dict(model_capacity='tiny', decode=decode, viterbi=smooth)
-    viterbi.reset_launches()
+    reset_counters()
     ours = pitch_crepe.CrepePitchProcessor(**kwargs).process_all(
         ours_utts, device='cpu')
-    assert viterbi.LAUNCHES['banded_viterbi'] == 0
+    assert launch_counts('banded_viterbi') == {'banded_viterbi': 0}
     ref = jpitch_crepe.CrepePitchProcessor(**kwargs).process_all(ref_utts)
     assert list(ours.keys()) == list(ref.keys())
     for name in ref.keys():

@@ -332,15 +332,15 @@ TWO_PROCESS_RUNS = {
 def run_cuda(workdir):
     """The main path and the VTLN training on the card, for
     ``tests/test_torch_gpu.py``."""
-    from shennong_tpu_torch.ops import cuda_viterbi
+    from chip_smoke import VITERBI, launch_counts, reset_counters
     from shennong_tpu_torch.parallel import distributed
 
     spanning = utterances('spanning', workdir)
-    cuda_viterbi.reset_launches()
+    reset_counters()
     out = features_arrays(distributed.extract_features(
         main_config(), spanning, device='cuda'), 'extract')
     out.update({f'launches.{name}': np.int64(count)
-                for name, count in cuda_viterbi.LAUNCHES.items()})
+                for name, count in launch_counts(*VITERBI).items()})
     vtln = make_vtln()
     warps = distributed.train_vtln(vtln, spanning, group_by='speaker',
                                    device='cuda')

@@ -53,6 +53,7 @@ import pytest
 import scipy.io.wavfile
 import torch
 
+from chip_smoke import VITERBI, launch_counts, reset_counters
 from shennong_tpu_torch.audio import Audio
 from shennong_tpu_torch.utterances import Utterances
 from shennong_tpu_torch import pipeline
@@ -115,10 +116,10 @@ def test_kernels_match_plain(cuda_device, shape, bounds):
         rng.rand(*shape).astype(np.float32)).to(cuda_device)
     counts = torch.tensor(bounds, dtype=torch.int32, device=cuda_device)
 
-    cuda_viterbi.reset_launches()
+    reset_counters()
     hist = cuda_viterbi.viterbi_forward(cost, counts, FACTOR)
     best = cuda_viterbi.viterbi_backtrace(hist, counts, FACTOR)
-    assert cuda_viterbi.LAUNCHES == {
+    assert launch_counts(*VITERBI) == {
         'viterbi_forward': 1, 'viterbi_backtrace': 1}
     plain = cuda_viterbi.viterbi_forward_plain(cost, counts, FACTOR)
     best_plain = cuda_viterbi.viterbi_backtrace_plain(plain, counts, FACTOR)
@@ -223,10 +224,10 @@ def test_slice_matches_cpu(cuda_device, corpus, features):
         config['plp']['rasta'] = True
     config['pitch']['postprocessing']['delta_pitch_noise_stddev'] = 0
 
-    cuda_viterbi.reset_launches()
+    reset_counters()
     on_cuda = pipeline.extract_features(
         copy.deepcopy(config), corpus, device=cuda_device)
-    assert min(cuda_viterbi.LAUNCHES.values()) > 0
+    assert min(launch_counts(*VITERBI).values()) > 0
     on_cpu = pipeline.extract_features(
         copy.deepcopy(config), corpus, device='cpu')
     for name in on_cpu:
@@ -271,12 +272,12 @@ def test_chunked_matches_whole(cuda_device, two_minutes, name):
 
 def test_pitch_chunked_matches_whole(cuda_device, two_minutes):
     proc = KaldiPitchProcessor()
-    cuda_viterbi.reset_launches()
+    reset_counters()
     chunked = proc.process_chunked(
         two_minutes, chunk_frames=2000, halo_frames=200,
         device=cuda_device).data
     # 6 chunks of 2400 frames: one group of 8 rows
-    assert cuda_viterbi.LAUNCHES == {
+    assert launch_counts(*VITERBI) == {
         'viterbi_forward': 1, 'viterbi_backtrace': 1}
     whole = proc.process(two_minutes, device=cuda_device).data
     assert_ties(two_minutes.data, proc.options(), chunked, whole,
@@ -486,10 +487,10 @@ def test_vtln_slice_matches_cpu(cuda_device, corpus):
     vtln['ubm'].update(num_gauss=8, num_iters=2, num_iters_init=4,
                        num_frames=2000)
 
-    cuda_viterbi.reset_launches()
+    reset_counters()
     on_cuda = pipeline.extract_features(
         copy.deepcopy(config), corpus, device=cuda_device)
-    assert min(cuda_viterbi.LAUNCHES.values()) > 0
+    assert min(launch_counts(*VITERBI).values()) > 0
     on_cpu = pipeline.extract_features(
         copy.deepcopy(config), corpus, device='cpu')
     for name in on_cpu:
@@ -551,10 +552,10 @@ def test_banded_viterbi_matches_plain(cuda_device, shape, bounds):
     halfwidth = shape[3]
     obs_t = torch.from_numpy(obs).to(cuda_device)
     counts = torch.tensor(bounds, dtype=torch.int32, device=cuda_device)
-    viterbi.reset_launches()
+    reset_counters()
     paths = viterbi.viterbi_banded_obs_batch(
         log_start, band, uniform, self_w, obs_t, counts, halfwidth)
-    assert viterbi.LAUNCHES['banded_viterbi'] == 1
+    assert launch_counts('banded_viterbi') == {'banded_viterbi': 1}
     plain = viterbi.viterbi_banded_obs_batch_plain(
         torch.as_tensor(log_start, dtype=torch.float32, device=cuda_device),
         torch.as_tensor(band, dtype=torch.float32, device=cuda_device),
@@ -597,10 +598,10 @@ def test_crepe_processor_matches_cpu(cuda_device):
         ('u3', REAL_WAV, 0.0, 1.41)])
     for decode in ('host', 'device'):
         proc = CrepePitchProcessor(model_capacity='tiny', decode=decode)
-        viterbi.reset_launches()
+        reset_counters()
         gpu = proc.process_all(utterances, device=cuda_device)
         # one launch per slice with the device decode, none with the host's
-        assert (viterbi.LAUNCHES['banded_viterbi'] > 0) == (
+        assert (launch_counts('banded_viterbi')['banded_viterbi'] > 0) == (
             decode == 'device')
         cpu = proc.process_all(utterances, device='cpu')
         for name in cpu.keys():
@@ -676,9 +677,9 @@ def test_dtw_kernel_matches_plain(cuda_device, shape, ragged):
     for metric in ('cosine', 'euclidean'):
         costs = abx._frame_costs(
             x.to(cuda_device), y.to(cuda_device), metric)
-        dtw.reset_launches()
+        reset_counters()
         div = dtw.dtw_divergences(costs, nx, ny)
-        assert dtw.LAUNCHES == {'dtw': 1}
+        assert launch_counts('dtw') == {'dtw': 1}
         plain = dtw.dtw_divergences_plain(costs, nx, ny)
         # past 1e-5, the two must be a proven near-tie of two lengths,
         # and at most one pair in 1000 may be
@@ -768,10 +769,10 @@ def test_abx_ci_matches_cpu(cuda_device):
     from shennong_tpu_torch.eval import abx_bench
     from shennong_tpu_torch.ops import dtw
 
-    dtw.reset_launches()
+    reset_counters()
     gpu = abx_bench.benchmark('ci', features=('mfcc', 'rastaplp'),
                               device=cuda_device)
-    assert dtw.LAUNCHES['dtw'] >= 10
+    assert launch_counts('dtw')['dtw'] >= 10
     cpu = abx_bench.benchmark('ci', features=('mfcc', 'rastaplp'),
                               device='cpu')
     assert gpu['warps'] == cpu['warps']

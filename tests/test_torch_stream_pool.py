@@ -4,8 +4,9 @@ Ports of tests/test_stream.py's pool tests (reuse, views rejected, a
 poisoned recycled buffer zero-padded, stale shapes evicted), the pool's
 accounting against the JAX package's on the same sequence, and the
 counters of one CPU extraction of each package over the same corpus:
-the same keys, the same ``bytes_up``, and half the JAX package's
-``dispatches`` (it counts its payload packing as a second program).
+the JAX package's keys and the port's own split of the call, the same
+``bytes_up``, and half the JAX package's ``dispatches`` (it counts its
+payload packing as a second program).
 """
 
 import copy
@@ -24,6 +25,7 @@ from shennong_tpu_torch.ops.framing import bucket_size
 from shennong_tpu_torch.parallel import profiler
 from shennong_tpu_torch.parallel import stream
 from shennong_tpu_torch.utterances import Utterances
+from tests.test_torch_tracing import NEW_COUNTERS
 
 
 @pytest.fixture(scope='module')
@@ -153,9 +155,13 @@ def test_extraction_counters_match_jax(corpus):
     jpipeline.extract_features(
         copy.deepcopy(config), JUtterances(corpus), njobs=2)
     theirs = jprofiler.counters.snapshot()
-    assert sorted(ours) == sorted(theirs) == sorted(
+    assert sorted(theirs) == sorted(
         ('decode_s', 'dispatch_s', 'dispatches', 'bytes_up', 'fetch_s',
          'bytes_down', 'pass2_s'))
+    # the port also splits the call's time and pass 2
+    # (tests/test_torch_tracing.py); no kernel launches on the CPU
+    assert set(theirs) <= set(ours)
+    assert set(ours) - set(theirs) == set(NEW_COUNTERS)
     assert ours['bytes_up'] == theirs['bytes_up']
     # one batch of 5: int16 [5, bucket] signals and int32 nsamples
     assert ours['bytes_up'] == 5 * bucket_size(30000) * 2 + 5 * 4

@@ -15,6 +15,8 @@ import torch
 
 import jax.numpy as jnp
 
+from chip_smoke import VITERBI, launch_counts, reset_counters
+
 from shennong_tpu.ops.pallas_viterbi import (
     viterbi_forward_pallas, viterbi_lags_pallas)
 from shennong_tpu.ops.pitch import _viterbi_lags as jax_viterbi_lags
@@ -93,9 +95,9 @@ def test_wrapper_dispatch_on_cpu():
     """CPU tensors take the plain version and launch nothing."""
     local_cost, nframes = _inputs((3, 12, 20), [12, 5, 0])
     cost_t, nframes_t = torch.from_numpy(local_cost), torch.from_numpy(nframes)
-    cuda_viterbi.reset_launches()
+    reset_counters()
     lags = cuda_viterbi.viterbi_lags(cost_t, FACTOR, nframes_t)
-    assert cuda_viterbi.LAUNCHES == {
+    assert launch_counts(*VITERBI) == {
         'viterbi_forward': 0, 'viterbi_backtrace': 0}
     assert torch.equal(
         lags, cuda_viterbi.viterbi_lags_plain(cost_t, FACTOR, nframes_t))
