@@ -4,25 +4,27 @@
 
 Builds the CUDA kernels of ``shennong_tpu_torch`` from the sources in
 this checkout (one nvcc for each source, started together), holds each
-against its plain PyTorch version on the card (the pitch Viterbi at the
-corpus batch [64, 598, 417], edge shapes, the chunk shape of
+against its plain PyTorch version on the card (the pitch Viterbi at
+the corpus batch [64, 598, 417], edge shapes, the chunk shape of
 hour-scale pitch and the 12-minute whole run [1, 71998, 417]; the
 banded Viterbi of the CREPE device decode at its slice shape [33, 490,
 360], [16, 1024, 360] and [1, 8192, 360], with each states-a-thread
 variant and its forward timed apart from its backtrace; the ABX
 evaluator's DTW at the benchmark's [4096, 24, 24], with each
-rows-a-lane variant, [512, 64, 64] and [1, 300, 280]), prints each
-kernel's cluster size, registers and spills, milliseconds, time per
-frame, bound and share of the bound, times the previous designs of
-the banded Viterbi and the DTW against this checkout's in turns where
-their sources sit under ``build/ab_previous/`` (kept out of git),
-checks the processors against ``tests/data/golden_real.npz`` and
-``tests/kaldi_oracle.py`` (and, on the JAX suite's synthetic signal,
-the spectrogram's four option sets against the oracle and
-``tests/data/golden.npz``, and the Kaldi pitch post-processing's
-batched route against its single one, bit for bit), and drives the
-port's paths over a generated corpus of 256 utterances (4 s and 6 s,
-16 speakers):
+rows-a-lane variant, [512, 64, 64] and [1, 300, 280]; pass 2's kernel
+at a test_clean CMVN group, a half-hour group and a delta window wider
+than a tile, against its plain version on the CPU and on the card, bit
+for bit), prints each kernel's cluster size, registers and spills,
+milliseconds, time per frame, bound and share of the bound, times the
+previous designs of the banded Viterbi and the DTW against this
+checkout's in turns where their sources sit under
+``build/ab_previous/`` (kept out of git), checks the processors
+against ``tests/data/golden_real.npz`` and ``tests/kaldi_oracle.py``
+(and, on the JAX suite's synthetic signal, the spectrogram's four
+option sets against the oracle and ``tests/data/golden.npz``, and the
+Kaldi pitch post-processing's batched route against its single one,
+bit for bit), and drives the port's paths over a generated corpus of
+256 utterances (4 s and 6 s, 16 speakers):
 
 - the MFCC slice, ``extract_features`` with the default MFCC + Kaldi
   pitch + CMVN + delta configuration;
@@ -97,15 +99,18 @@ port's paths over a generated corpus of 256 utterances (4 s and 6 s,
 
 ``python3 chip_smoke.py --spectrogram-pass ROOT DIRECTORY`` runs the
 spectrogram pass alone with the package of the checkout at ROOT (two
-commits timed in turns in one call).
+commits timed in turns in one call); ``python3 chip_smoke.py
+--pass-two`` builds the kernels and runs the pass-2 kernel's phase
+alone.
 
 The three Kaldi-pitch slices, the long-audio run, each process of the
-multi-process run and the examples with Kaldi pitch must go through
-both pitch Viterbi kernels, the CREPE device decode through the banded
-one, the ABX runs and ABX examples through the DTW kernel. Every phase prints
-its lines; any failure raises and the script exits non-zero. The
-second-to-last lines are the kernels' JSON record and the card's name
-and power limit; the last line is the JSON verdict.
+multi-process run and the examples with Kaldi pitch must go through both
+pitch Viterbi kernels (the MFCC and RASTA-PLP slices through the pass-2
+kernel too, once a speaker and run), the CREPE device decode through the
+banded one, the ABX runs and ABX examples through the DTW kernel. Every
+phase prints its lines; any failure raises and the script exits
+non-zero. The second-to-last lines are the kernels' JSON record and the
+card's name and power limit; the last line is the JSON verdict.
 
 Exits non-zero without a result when no CUDA device is available.
 Imports nothing of JAX.
@@ -239,7 +244,8 @@ def kernel_resources(log):
     'banded_viterbi<3,11>' (states a thread, halfwidth held in
     registers or 0), 'dtw_staged<1,1>' (rows a lane, lane 0 reading the
     row above from an idle lane), 'dtw_strip', and the previous
-    designs' 'banded_viterbi' and 'dtw'."""
+    designs' 'banded_viterbi' and 'dtw', and 'pass_two<f,f>' (the
+    features' and the output's types)."""
     resources = {}
     current, spills = None, (0, 0)
     for line in log.splitlines():
@@ -247,6 +253,7 @@ def kernel_resources(log):
             r'(viterbi_(?:forward|backtrace))_kernelILi(\d+)E', line)
         banded = re.search(r'banded_viterbi_kernelILi(\d+)ELi(\d+)E', line)
         staged = re.search(r'dtw_kernel_stagedILi(\d+)ELb([01])E', line)
+        packed = re.search(r'pass_two_kernelI([fd])([fd])E', line)
         if entry:
             current = f'{entry.group(1)}<{entry.group(2)}>'
         elif banded:
@@ -255,6 +262,8 @@ def kernel_resources(log):
             current = 'banded_viterbi'
         elif staged:
             current = f'dtw_staged<{staged.group(1)},{staged.group(2)}>'
+        elif packed:
+            current = 'pass_two<{},{}>'.format(*packed.groups())
         elif 'dtw_kernel_strip' in line:
             current = 'dtw_strip'
         elif 'dtw_kernel' in line:
@@ -271,18 +280,21 @@ def kernel_resources(log):
 
 
 def build_kernels():
-    """Build csrc/viterbi.cu, csrc/banded_viterbi.cu and csrc/dtw.cu
-    afresh, and the previous sources under AB_SOURCES where present, one
-    nvcc for each source, started together; returns ptxas's (registers,
-    spill stores, spill loads) by kernel instantiation of this checkout
-    (:func:`kernel_resources`) and, under 'previous', those of the
-    previous designs and their library paths (or None)."""
+    """Build csrc/viterbi.cu, csrc/banded_viterbi.cu, csrc/dtw.cu and
+    csrc/pass_two.cu afresh, and the previous sources under AB_SOURCES
+    where present, one nvcc for each source, started together; returns
+    ptxas's (registers, spill stores, spill loads) by kernel
+    instantiation of this checkout (:func:`kernel_resources`) and, under
+    'previous', those of the previous designs and their library paths
+    (or None)."""
     import concurrent.futures
 
-    from shennong_tpu_torch.ops import cuda_viterbi, dtw, viterbi
+    from shennong_tpu_torch.ops import cuda_viterbi, dtw, pass_two, viterbi
 
     start = time.perf_counter()
-    sources = [cuda_viterbi._SOURCE, viterbi._SOURCE, dtw._SOURCE]
+    sources = [cuda_viterbi._SOURCE, viterbi._SOURCE, dtw._SOURCE,
+               pass_two._SOURCE]
+    current = len(sources)
     old = [os.path.join(AB_SOURCES, name)
            for name in ('banded_viterbi.cu', 'dtw.cu')]
     if all(os.path.isfile(path) for path in old):
@@ -293,18 +305,21 @@ def build_kernels():
     cuda_viterbi._load()
     viterbi._load()
     dtw._load()
+    pass_two._load()
     seconds = time.perf_counter() - start
     say('build', ', '.join(os.path.relpath(path, HERE) for path, _ in built)
         + f' in {seconds:.2f} s (one nvcc each, in parallel)')
     resources = {}
-    for _, log in built[:3]:
+    for _, log in built[:current]:
         resources.update(kernel_resources(log))
-    for name in ('banded_viterbi<3,11>', 'dtw_staged<1,1>', 'dtw_strip'):
+    for name in ('banded_viterbi<3,11>', 'dtw_staged<1,1>', 'dtw_strip',
+                 'pass_two<f,f>'):
         check(name in resources, f'no ptxas resources for {name}')
     resources['previous'] = None
-    if len(built) > 3:
-        resources['previous'] = {'libraries': [path for path, _ in built[3:]]}
-        for _, log in built[3:]:
+    if len(built) > current:
+        resources['previous'] = {
+            'libraries': [path for path, _ in built[current:]]}
+        for _, log in built[current:]:
             resources['previous'].update(kernel_resources(log))
     for name, value in sorted(
             (k, v) for k, v in resources.items() if k != 'previous'):
@@ -759,9 +774,13 @@ def the_slice(card, entries, features):
 
     reset_counters()
     walls, features_out = warm_runs(config, utterances)
-    launches = launch_counts(*VITERBI)
+    launches = launch_counts(*VITERBI, 'pass_two')
     for name, count in launches.items():
         check(count > 0, f'the {phase} never launched {name}')
+    # pass 2: one launch a CMVN group (a speaker) and run
+    check(launches['pass_two'] == RUNS * NUM_SPEAKERS,
+          f'the {phase} launched pass_two {launches["pass_two"]} times, not '
+          f'{RUNS * NUM_SPEAKERS}')
 
     check(len(features_out) == NUM_UTTERANCES,
           f'{len(features_out)} outputs for {NUM_UTTERANCES} utterances')
@@ -2165,7 +2184,7 @@ def distributed_worker(rank, directory):
         timed('cold_s', extract)
         reset_counters()
         features = timed('extract_s', extract)
-        report['launches'] = launch_counts(*VITERBI)
+        report['launches'] = launch_counts(*VITERBI, 'pass_two')
     raw = pitch_batched(distributed.shard_utterances(list(corpus)), 'cuda')
     arrays = {}
     for name in features:
@@ -2229,17 +2248,17 @@ def distributed_phase(card, workdir, entries):
     corpus, speakers relabelled to span both processes
     (:func:`distributed_entries`): the merged features against the
     single-process card run (DIST_TOL; a pitch lag that differs a proven
-    tie, its three pitch columns left out), both Viterbi kernels
-    launched in every process. The VTLN training at the JAX package's
-    defaults (64 Gaussians, 41 warp classes, 15 rounds) on the ABX
-    'full' training half: the processes' UBM, base and speaker
+    tie, its three pitch columns left out), both Viterbi kernels and the
+    pass-2 kernel launched in every process. The VTLN training at the
+    JAX package's defaults (64 Gaussians, 41 warp classes, 15 rounds) on
+    the ABX 'full' training half: the processes' UBM, base and speaker
     transforms and warps the same bits, and against the single-process
     card run the warps equal or proven ties, the UBM within MODEL_TOL,
     the transforms within MODEL_TOL in their action on the training
     frames. Prints the walls (the processes share the card: an
     observation, not a speed-up) and the collectives per EM iteration
-    and per LVTLN round. Returns the Viterbi launches of the processes'
-    counted runs, summed."""
+    and per LVTLN round. Returns the Viterbi and pass-2 launches of the
+    processes' counted runs, summed."""
     from shennong_tpu_torch import Utterances, pipeline
     from shennong_tpu_torch.eval import abx_bench
 
@@ -2284,7 +2303,7 @@ def distributed_phase(card, workdir, entries):
             reports.append(json.load(stream))
         results.append(dict(np.load(os.path.join(directory,
                                                  f'rank{rank}.npz'))))
-    launches = {'viterbi_forward': 0, 'viterbi_backtrace': 0}
+    launches = {'viterbi_forward': 0, 'viterbi_backtrace': 0, 'pass_two': 0}
     for rank, report in enumerate(reports):
         for name in launches:
             count = report['launches'].get(name, 0)
@@ -3211,6 +3230,116 @@ def _segment(rows, per_lane):
 
 # ---------------------------------- the previous designs against this one
 
+#: the pass-2 kernel's cases: a test_clean CMVN group (65 utterances,
+#: about 48,000 frames), the half hour of the benchmark's longest
+#: utterance's speaker, and a delta window wider than a tile
+PASS_TWO_CASES = (('test_clean group', 0.134, (2, 2)),
+                  ('half-hour group', 0.5, (2, 2)),
+                  ('wide window', 0.02, (2, 300)))
+
+
+def pass_two_group(hours, delta, seed):
+    """Pass 2's packed input for one CMVN group of about ``hours`` of
+    utterances of LibriSpeech test-clean's shape (log-normal 1.3-35 s):
+    (features [T_i, 13] float32, pitch [T_i + s_i, 3], rows, the
+    affine (scale, offset) [1, 13], delta), pitch off by -2..2 frames
+    as the tolerance allows."""
+    rng = np.random.RandomState(seed)
+    features, pitches, rows = [], [], []
+    while sum(rows) < hours * 360000:
+        seconds = min(max(np.exp(rng.normal(1.85, 0.55)), 1.3), 35.0)
+        nframes = int(seconds * 100) - 2
+        shift = int(rng.randint(-2, 3))
+        features.append((rng.randn(nframes, 13) * 5 + 3).astype(np.float32))
+        pitches.append(rng.randn(nframes + shift, 3).astype(np.float32))
+        rows.append(min(nframes, nframes + shift))
+    affine = (np.abs(rng.randn(1, 13)) + 0.1, rng.randn(1, 13))
+    return features, pitches, rows, affine, delta
+
+
+def pass_two_kernel_phase(resources):
+    """The pass-2 kernel against its plain version (on the CPU and on
+    the card) at PASS_TWO_CASES, bit for bit, repeated launches equal;
+    timed at each: the kernel's device time a launch (profiler), a
+    ``compute`` call (the launch and the download of the rows, host
+    clock), the packing and upload (``pack``), the plain version on the
+    card (CUDA events) and on the CPU, beside the bound (the group's
+    bytes read and written once at 3.35 TB/s). Returns (0.0, the times
+    at the test_clean group for the kernels' JSON line)."""
+    from shennong_tpu_torch.ops import pass_two
+
+    phase = 'pass two kernel'
+    begin = time.perf_counter()
+    timed = None
+    for label, hours, delta in PASS_TWO_CASES:
+        features, pitches, rows, affine, delta = pass_two_group(
+            hours, delta, seed=19)
+        groups = [0] * len(features)
+
+        def packed(device):
+            return pass_two.pack(features, pitches, rows, groups, affine,
+                                 delta, device=device)
+
+        on_card = packed('cuda')
+        out, nonfinite = pass_two.compute(on_card)
+        host = packed('cpu')
+        cpu_start = time.perf_counter()
+        reference, cpu_nonfinite = pass_two.compute(host)
+        cpu_ms = (time.perf_counter() - cpu_start) * 1e3
+
+        def plain():
+            return pass_two.pass_two_plain(
+                *[on_card.tensor(name) for name in (
+                    'feats', 'pitch', 'layout', 'scale', 'offset')],
+                on_card.order, on_card.window)
+
+        card_plain, _ = plain()
+        check(nonfinite == cpu_nonfinite == 0,
+              f'pass_two: {label} counted {nonfinite} non-finite values')
+        check(out.shape == reference.shape and np.array_equal(out, reference),
+              f'pass_two: {label} differs from the plain version on the CPU')
+        check(np.array_equal(card_plain.cpu().numpy(), reference),
+              f'pass_two: {label}: the plain version on the card differs '
+              'from the CPU')
+        for _ in range(3):
+            check(np.array_equal(pass_two.compute(on_card)[0], out),
+                  f'pass_two: {label} changed between launches')
+
+        ms = kernel_device_ms(lambda: pass_two.compute(on_card), 20,
+                              'pass_two_kernel')
+        start = time.perf_counter()
+        for _ in range(20):
+            pass_two.compute(on_card)
+        compute_ms = (time.perf_counter() - start) / 20 * 1e3
+        start = time.perf_counter()
+        for _ in range(20):
+            packed('cuda')
+        torch.cuda.synchronize()
+        pack_ms = (time.perf_counter() - start) / 20 * 1e3
+        plain_ms = cuda_ms(plain, 5)
+        nbytes = 4 * (int(np.prod(on_card.shape('feats')))
+                      + int(np.prod(on_card.shape('pitch'))) + out.size)
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        kind = 'pass_two<f,f>'
+        registers, stores, loads = resources[kind]
+        say(phase, f'{label}: {len(features)} utterances, '
+            f'{on_card.shape("feats")[0]} frames -> {tuple(out.shape)}, delta '
+            f'{delta}, {on_card.tiles} tiles of {pass_two.TILE_ROWS} frames: '
+            'equal to the plain version on the CPU and on the card, repeated '
+            f'launches equal; kernel {ms:.4f} ms (profiler, device time a '
+            'launch), '
+            f'compute {compute_ms:.3f} ms (launch and download, host clock), '
+            f'pack {pack_ms:.3f} ms (host, upload enqueued), plain on the '
+            f'card {plain_ms:.3f} ms (CUDA events), plain on the CPU '
+            f'{cpu_ms:.1f} ms; {kind}, {registers} registers, spills '
+            f'{stores}/{loads} B; bound {bound_ms:.5f} ms by bytes '
+            f'({nbytes} B), share of bound {bound_ms / ms:.4f}')
+        if timed is None:
+            timed = (ms, plain_ms, bound_ms, 'bytes')
+    say(phase, f'phase time {time.perf_counter() - begin:.1f} s')
+    return 0.0, timed
+
+
 def ab_phase(resources):
     """The previous designs of the banded Viterbi and the DTW against
     this checkout's, in one process, in turns (previous, new, new,
@@ -3961,10 +4090,11 @@ def main():
     errors['banded_viterbi'], times['banded_viterbi'] = banded_kernel_phase(
         resources)
     errors['dtw'], times['dtw'], dtw_ties = dtw_kernel_phase(resources)
+    errors['pass_two'], times['pass_two'] = pass_two_kernel_phase(resources)
     ab_phase(resources)
     goldens()
     workdir = os.path.join(HERE, 'build', 'chip_smoke_corpus')
-    launches = {'viterbi_forward': 0, 'viterbi_backtrace': 0}
+    launches = {'viterbi_forward': 0, 'viterbi_backtrace': 0, 'pass_two': 0}
     try:
         entries = make_corpus(workdir)
         for features in ('mfcc', 'plp'):
@@ -4007,6 +4137,8 @@ def main():
         # a lax.scan with an associative_scan: the ABX evaluator's DTW
         'dtw': ('shennong_tpu_torch/csrc/dtw.cu',
                 'shennong_tpu/eval/abx.py:65'),
+        # host code in both packages: pass 2 of the pipeline
+        'pass_two': ('shennong_tpu_torch/csrc/pass_two.cu', None),
     }
     print(json.dumps({'kernels': [
         {'name': name, 'route': 'cuda', 'source': source,
@@ -4014,7 +4146,7 @@ def main():
          'max_abs_err': errors[name], 'ms': times[name][0],
          'plain_ms': times[name][1], 'bound_ms': times[name][2],
          'bound_by': times[name][3],
-         # no single PyTorch call computes a Viterbi or a DTW
+         # no single PyTorch call computes a Viterbi, a DTW or pass 2
          'library_ms': None,
          # the DTW's pairs past DTW_TOL, each a proven near-tie, are
          # counted here and kept out of its max_abs_err
@@ -4033,5 +4165,8 @@ if __name__ == '__main__':
         first_call(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ['--spectrogram-pass']:
         spectrogram_pass(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ['--pass-two']:
+        probe()
+        pass_two_kernel_phase(build_kernels())
     else:
         main()

@@ -191,21 +191,7 @@ class Features:
         pass 2 over a whole corpus — avoid a full re-scan of the
         output matrix per utterance.
         """
-        diff = abs(self.nframes - other.nframes)
-        if diff:
-            if not tolerance:
-                raise ValueError(
-                    'features have a different number of frames')
-            if diff > tolerance:
-                raise ValueError(
-                    'features differs number of frames, and '
-                    'greater than tolerance: |{} - {}| > {}'.format(
-                        self.nframes, other.nframes, tolerance))
-            log.warning(
-                'features differs in number of frames, but '
-                'within tolerance (|%s - %s| <= %s), trim the longest one',
-                self.nframes, other.nframes, tolerance)
-
+        diff = check_frames(self.nframes, other.nframes, tolerance, log)
         data1, times1 = self.data, self.times
         data2, times2 = other.data, other.times
         if diff:
@@ -232,3 +218,24 @@ class Features:
         return Features(
             np.hstack((data1, data2)), times1, properties=properties,
             validate=validate)
+
+
+def check_frames(nframes, other, tolerance, log):
+    """The difference of two frame counts that
+    :meth:`Features.concatenate` trims: raises past ``tolerance``,
+    warns on ``log`` within it."""
+    diff = abs(nframes - other)
+    if diff:
+        if not tolerance:
+            raise ValueError(
+                'features have a different number of frames')
+        if diff > tolerance:
+            raise ValueError(
+                'features differs number of frames, and '
+                'greater than tolerance: |{} - {}| > {}'.format(
+                    nframes, other, tolerance))
+        log.warning(
+            'features differs in number of frames, but '
+            'within tolerance (|%s - %s| <= %s), trim the longest one',
+            nframes, other, tolerance)
+    return diff

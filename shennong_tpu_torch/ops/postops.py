@@ -166,14 +166,12 @@ def accumulate_cmvn_stats(feats, weights=None):
     return stats
 
 
-def apply_cmvn(feats, stats, norm_vars=True, skip_dims=None,
-               reverse=False):
-    """Apply accumulated CMVN statistics to a features matrix.
+def cmvn_affine(stats, norm_vars=True, skip_dims=None):
+    """The per-dim affine ``(scale, offset)`` (float64) of accumulated
+    CMVN statistics, :func:`apply_cmvn` applies ``x * scale + offset``.
 
-    Kaldi's ApplyCmvn/ApplyCmvnReverse: a per-dim affine transform from
-    the mean (and optionally variance) in ``stats``; ``skip_dims``
-    leaves the listed dimensions untouched. A non-positive variance
-    floors to 1e-20 with a warning and a non-finite scale raises.
+    A non-positive variance floors to 1e-20 with a warning and a
+    non-finite scale raises; ``skip_dims`` get the identity.
     """
     stats = np.asarray(stats, dtype=np.float64)
     dim = stats.shape[1] - 1
@@ -202,7 +200,19 @@ def apply_cmvn(feats, stats, norm_vars=True, skip_dims=None,
         offset = offset.copy()
         scale[list(skip_dims)] = 1.0
         offset[list(skip_dims)] = 0.0
+    return scale, offset
 
+
+def apply_cmvn(feats, stats, norm_vars=True, skip_dims=None,
+               reverse=False):
+    """Apply accumulated CMVN statistics to a features matrix.
+
+    Kaldi's ApplyCmvn/ApplyCmvnReverse: a per-dim affine transform from
+    the mean (and optionally variance) in ``stats``
+    (:func:`cmvn_affine`); ``skip_dims`` leaves the listed dimensions
+    untouched.
+    """
+    scale, offset = cmvn_affine(stats, norm_vars, skip_dims)
     feats = np.asarray(feats)
     if reverse:
         return ((feats - offset) / scale).astype(feats.dtype)

@@ -248,7 +248,7 @@ def extract_features(configuration, utterances, njobs=1, *, device,
     if generator is None:
         generator = fresh_generator(device)
 
-    manager = PipelineManager(config, shard, log=log)
+    manager = PipelineManager(config, shard, log=log, device=device)
     cache = None
     if 'vtln' in config:
         vtln = manager.make('vtln')

@@ -57,9 +57,14 @@ Counters (key: seam; span over the same interval, if any):
 - ``pass2_s``: pass 2 of a group (CMVN apply, deltas, pitch
   concatenation), thread seconds: the fused path runs it on the thread
   ``pass-two`` while pass 1 goes on (the span ``pass2`` lies inside);
-- ``pass2_cmvn_s``, ``pass2_delta_s``, ``pass2_concat_s``: inside
-  ``pass2``, each step over the group (``pass2.cmvn``, ``pass2.delta``,
-  ``pass2.concat``; ``pipeline._pass_two``);
+- ``pass2_pack_s``, ``pass2_compute_s``, ``pass2_unpack_s``: inside
+  ``pass2`` (``pipeline._pass_two``), the CMVN affines, the packing of
+  the group and its upload (``pass2.pack``); the kernel or the plain
+  version up to the output rows' landing on the host
+  (``pass2.compute``); each utterance's checks, Features and
+  properties (``pass2.unpack``);
+- ``pass2_kernel_utts``: utterances whose pass 2 ran in the kernel
+  (``csrc/pass_two.cu``; 0 is added for those on the CPU);
 - ``pass2_utts``: utterances pass 2's worker finished;
   ``pass2_backlog_utts``: those handed to it and not yet finished when
   the caller starts to wait for it, one add per call;
@@ -68,7 +73,8 @@ Counters (key: seam; span over the same interval, if any):
 - ``launches.<kernel>``: the hand-written kernels' launches,
   ``launches.viterbi_forward`` and ``launches.viterbi_backtrace``
   (``ops.cuda_viterbi``), ``launches.banded_viterbi``
-  (``ops.viterbi``), ``launches.dtw`` (``ops.dtw``).
+  (``ops.viterbi``), ``launches.dtw`` (``ops.dtw``),
+  ``launches.pass_two`` (``ops.pass_two``).
 
 ``plan_s``, ``decode_wait_s``, ``dispatch_s``, ``fetch_s``, ``drain_s``
 and ``pass2_join_s`` are disjoint intervals of a fused call's thread,

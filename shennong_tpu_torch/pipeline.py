@@ -53,18 +53,19 @@ import threading
 import numpy as np
 import torch
 
-from shennong_tpu_torch.features import Features
+from shennong_tpu_torch.features import Features, check_frames
 from shennong_tpu_torch.features_collection import FeaturesCollection
 from shennong_tpu_torch.logger import get_logger, null_logger
+from shennong_tpu_torch.ops import pass_two
 from shennong_tpu_torch.ops.postops import (
-    accumulate_cmvn_stats, compute_deltas_host)
+    accumulate_cmvn_stats, cmvn_affine, compute_deltas_host)
 from shennong_tpu_torch.parallel.executor import (
     BatchExecutor, FusedPipelineExecutor, check_fetch_dtype)
 from shennong_tpu_torch.parallel.profiler import counters, span
 from shennong_tpu_torch.parallel.stream import SignalCache
 from shennong_tpu_torch.pipeline_manager import PipelineManager
 from shennong_tpu_torch.processor.base import fresh_generator
-from shennong_tpu_torch.utils import get_njobs
+from shennong_tpu_torch.utils import copy_properties, get_njobs
 
 
 def valid_features():
@@ -212,7 +213,8 @@ def extract_features(configuration, utterances, warps=None, njobs=1,
                 warps = _init_warps(warps, config, utterances, log)
             if generator is None:
                 generator = fresh_generator(device)
-            manager = PipelineManager(config, utterances, log=log)
+            manager = PipelineManager(
+                config, utterances, log=log, device=device)
 
         cache = None
         if warps:
@@ -232,7 +234,7 @@ def extract_features(configuration, utterances, warps=None, njobs=1,
 
 @contextlib.contextmanager
 def _pass_two_worker(manager, log, results):
-    """A thread named ``pass-two`` that runs :func:`_pass_two` on the
+    """A thread named ``pass-two`` that runs :func:`_pass_two` over the
     groups handed to the yielded ``submit(triplets)``, under
     ``counters['pass2_s']``, into the dict ``results``, while the
     caller goes on with pass 1.
@@ -690,49 +692,192 @@ def _extract_pass_one(utterance, manager, device, generator, log):
     return utterance, features, pitch
 
 
+#: bytes of one pass-2 computation, its packed input and its output
+#: rows together: a call's utterances go to the device in runs of at
+#: most this many (one run a CMVN group on the fused path; the JAX
+#: package's pass 2 works in chunks of about 64 MB of input)
+PASS_TWO_BYTES = 64 * 2 ** 20
+
+
 def _pass_two(manager, triplets, log, tolerance=2):
-    """CMVN apply, deltas and pitch concatenation of one group.
+    """CMVN apply, deltas and pitch concatenation of CMVN groups.
 
     ``triplets`` are (utterance, features, pitch-or-None); returns a
-    dict name -> final Features. Runs under the profiler annotation
-    ``pass2``, each step over the whole group under its own
-    (``pass2.cmvn``, ``pass2.delta``, ``pass2.concat``).
+    dict name -> final Features: the data, times and properties of
+    ``manager.apply_cmvn``, :func:`compute_deltas_host` and
+    :meth:`Features.concatenate` (``tolerance``, ``validate=False``)
+    chained over each utterance, with their checks, warnings and
+    errors, and float32 as they give it.
+
+    Each CMVN group's affine is computed once; the utterances are
+    packed, unpadded, in runs of at most :data:`PASS_TWO_BYTES`, and
+    :mod:`shennong_tpu_torch.ops.pass_two` computes each run on
+    ``manager.device``, the call's (None raises): one launch of its
+    kernel on a CUDA device, its plain version on the CPU. An utterance's
+    Features is a row slice of its run's output. Runs under the
+    profiler annotation ``pass2``, split into ``pass2.pack`` (the
+    affines, the packing and the upload), ``pass2.compute`` (the kernel
+    or the plain version, up to the rows' landing on the host) and
+    ``pass2.unpack`` (each utterance's checks, Features and
+    properties).
     """
+    if manager.device is None:
+        raise ValueError('pass 2 runs on the device of its call: build '
+                         'the PipelineManager with device=')
     config = manager.config
+    device = torch.device(manager.device)
     delta = manager.make('delta') if 'delta' in config else None
-    utterances = [utterance for utterance, _, _ in triplets]
-    features = [feats for _, feats, _ in triplets]
-    pitches = [pitch for _, _, pitch in triplets]
+    spec = (delta.order, delta.window) if delta is not None else None
+    results = {}
     with torch.profiler.record_function('pass2'):
-        if 'cmvn' in config:
-            with span('pass2.cmvn', 'pass2_cmvn_s'):
-                for index, utterance in enumerate(utterances):
-                    log.debug('%s: apply cmvn', utterance.name)
-                    features[index] = manager.apply_cmvn(
-                        utterance, features[index])
-        if delta is not None:
-            with span('pass2.delta', 'pass2_delta_s'):
-                for index, utterance in enumerate(utterances):
-                    log.debug('%s: apply delta', utterance.name)
-                    data = features[index]
-                    out, = compute_deltas_host(
-                        [data.data], order=delta.order, window=delta.window)
-                    # validate=False: the times are untouched and the
-                    # delta filter of finite input is finite
-                    features[index] = Features(
-                        out.astype(data.dtype, copy=False), data.times,
-                        delta.get_properties(data), validate=False)
-        if any(pitch is not None for pitch in pitches):
-            with span('pass2.concat', 'pass2_concat_s'):
-                for index, utterance in enumerate(utterances):
-                    if pitches[index] is None:
-                        continue
-                    log.debug('%s: concatenate pitch', utterance.name)
-                    features[index] = features[index].concatenate(
-                        pitches[index], tolerance=tolerance, log=log,
-                        validate=False)
-    return {utterance.name: feats
-            for utterance, feats in zip(utterances, features)}
+        with span('pass2.pack', 'pass2_pack_s'):
+            affine, groups, cmvns = None, [0] * len(triplets), [None]
+            if 'cmvn' in config:
+                affine, groups, cmvns = _cmvn_affines(manager, triplets)
+            rows = [features.nframes if pitch is None
+                    else min(features.nframes, pitch.nframes)
+                    for _, features, pitch in triplets]
+        runs = []
+        for run in _pass_two_runs(triplets, rows, spec):
+            with span('pass2.pack', 'pass2_pack_s'):
+                pitches = [triplets[index][2] for index in run]
+                packed = pass_two.pack(
+                    [triplets[index][1].data for index in run],
+                    None if pitches[0] is None
+                    else [pitch.data for pitch in pitches],
+                    [rows[index] for index in run],
+                    [groups[index] for index in run], affine, spec,
+                    device=device)
+            with span('pass2.compute', 'pass2_compute_s'):
+                out, nonfinite = pass_two.compute(packed)
+            if nonfinite:  # where Features.validate raised after CMVN
+                raise ValueError(
+                    'data contains non-finite numbers (nan of infinity)')
+            runs.append((run, out))
+        counters.add('pass2_kernel_utts',
+                     len(triplets) if device.type == 'cuda' else 0)
+
+        with span('pass2.unpack', 'pass2_unpack_s'):
+            added = {}  # by (CMVN group, features' columns)
+            for run, out in runs:
+                start = 0
+                for index in run:
+                    utterance, features, pitch = triplets[index]
+                    key = (groups[index], features.ndims)
+                    if key not in added:
+                        added[key] = _added_properties(
+                            cmvns[key[0]], delta, features.ndims)
+                    results[utterance.name] = _unpacked(
+                        features, pitch, out[start:start + rows[index]],
+                        added[key], tolerance, log)
+                    start += rows[index]
+    log.debug('pass 2 of %d utterances in %d runs on %s',
+              len(triplets), len(runs), device)
+    return results
+
+
+def _unpacked(features, pitch, data, added, tolerance, log):
+    """The final Features of ``features`` and ``pitch`` (or None) whose
+    rows ``data`` pass 2 computed, with the checks and the warning of
+    :meth:`Features.concatenate` and the properties the chain gives
+    (:func:`_final_properties`)."""
+    times = features.times
+    if pitch is not None:
+        check_frames(features.nframes, pitch.nframes, tolerance, log)
+        count = len(data)
+        # equal times (the usual case) are close
+        if not (np.array_equal(times[:count], pitch.times[:count])
+                or np.allclose(times[:count], pitch.times[:count])):
+            raise ValueError('times are not equal')
+        if features.nframes > count:
+            times = times[:count]
+    width = data.shape[1] - (0 if pitch is None else pitch.ndims)
+    return Features(data, times,
+                    _final_properties(features, added, pitch, width),
+                    validate=False)
+
+
+def _cmvn_affines(manager, triplets):
+    """The CMVN of a pass-2 call's groups, each computed once, with the
+    checks, warnings and errors of ``CmvnPostProcessor.process`` in the
+    order the per-utterance route meets them: ((scale [G, D], offset
+    [G, D] float64), each utterance's row of them, the post-processor
+    of each row)."""
+    index, rows, cmvns, affines = {}, [], [], []
+    for utterance, features, _ in triplets:
+        key = manager.cmvn_key(utterance)
+        cmvn = (cmvns[index[key]] if key in index
+                else manager.get_cmvn_processor(utterance))
+        cmvn._check(features)
+        if key not in index:
+            index[key] = len(cmvns)
+            cmvns.append(cmvn)
+            affines.append(cmvn_affine(cmvn.stats))
+        rows.append(index[key])
+    return ((np.stack([scale for scale, _ in affines]),
+             np.stack([offset for _, offset in affines])), rows, cmvns)
+
+
+def _pass_two_runs(triplets, rows, delta):
+    """The indices of ``triplets`` in runs of one packed computation:
+    consecutive utterances of one features shape and dtype and one
+    pitch shape and dtype, at most :data:`PASS_TWO_BYTES` of input and
+    output rows (an utterance past it alone)."""
+    order = delta[0] if delta is not None else 0
+    run, key, size = [], None, 0
+    for index, (_, features, pitch) in enumerate(triplets):
+        data = features.data
+        this = (data.shape[1], data.dtype) + (
+            (None,) if pitch is None
+            else (pitch.data.shape[1], pitch.data.dtype))
+        npitch = 0 if pitch is None else pitch.data.shape[1]
+        itemsize = (data.dtype if pitch is None else np.result_type(
+            data.dtype, pitch.data.dtype)).itemsize
+        # the features in, the pitch in and the rows out
+        nbytes = data.nbytes + rows[index] * itemsize * (
+            (order + 1) * data.shape[1] + 2 * npitch)
+        if run and (this != key or size + nbytes > PASS_TWO_BYTES):
+            yield run
+            run, size = [], 0
+        run.append(index)
+        key = this
+        size += nbytes
+    if run:
+        yield run
+
+
+def _added_properties(cmvn, delta, ndim):
+    """What the per-utterance chain of ``cmvn`` (or None), then
+    ``delta`` (or None) adds to the properties of features of ``ndim``
+    columns: their own ``get_properties`` of empty features."""
+    properties = {}
+    for post in (cmvn, delta):
+        if post is not None:
+            properties = post.get_properties(Features(
+                np.zeros((0, ndim), np.float32), np.zeros(0), properties,
+                validate=False))
+    return properties
+
+
+def _final_properties(features, added, pitch, width):
+    """The properties of ``features`` after the chain that adds
+    ``added`` (:func:`_added_properties`) to them, then its
+    :meth:`Features.concatenate` with ``pitch`` (or None) after its
+    ``width`` columns: one copy of each input's properties."""
+    properties = copy_properties(features.properties)
+    added = copy_properties(added)
+    steps = added.pop('pipeline', [])
+    properties.update(added)
+    properties.setdefault('pipeline', []).extend(steps)
+    if pitch is not None:
+        other = copy_properties(pitch.properties)
+        properties.update(
+            {key: value for key, value in other.items() if key != 'pipeline'})
+        for entry in other.get('pipeline', []):
+            first, last = entry['columns']
+            entry['columns'] = [first + width, last + width]
+            properties['pipeline'].append(entry)
+    return properties
 
 
 def init_config(config, log=get_logger('pipeline', 'warning')):

@@ -53,11 +53,14 @@ class PipelineManager:
         'sliding_window_cmvn': 'cmvn'}
 
     def __init__(self, config, utterances,
-                 log=get_logger('manager', 'warning')):
+                 log=get_logger('manager', 'warning'), *, device=None):
         self._config = config
         self._utterances = utterances
         self._warps = {}
         self.log = log
+        #: the device of the extraction call: pass 2 runs there
+        #: (``pipeline._pass_two`` raises while it is None)
+        self.device = device
 
         by_speaker = (
             'cmvn' in config and config['cmvn'].get('by_speaker', False))

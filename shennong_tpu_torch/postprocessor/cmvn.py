@@ -104,14 +104,9 @@ class CmvnPostProcessor(FeaturesPostProcessor):
         self._stats += postops.accumulate_cmvn_stats(
             features.data, weights=weights)
 
-    def process(self, features, norm_vars=True, skip_dims=None,
-                reverse=False):
-        """Normalize ``features`` with the accumulated statistics.
-
-        ``norm_vars`` additionally normalizes the variance,
-        ``skip_dims`` lists dimensions to leave untouched, ``reverse``
-        applies the inverse transform.
-        """
+    def _check(self, features):
+        """Raise ValueError where the statistics cannot normalize
+        ``features``: a count below 1, another dimension."""
         if self.count < 1.0:
             raise ValueError(
                 'insufficient accumulation of stats for CMVN, '
@@ -122,6 +117,15 @@ class CmvnPostProcessor(FeaturesPostProcessor):
                 'features have {} dimensions but the accumulated '
                 'statistics have {}'.format(features.ndims, self.dim))
 
+    def process(self, features, norm_vars=True, skip_dims=None,
+                reverse=False):
+        """Normalize ``features`` with the accumulated statistics.
+
+        ``norm_vars`` additionally normalizes the variance,
+        ``skip_dims`` lists dimensions to leave untouched, ``reverse``
+        applies the inverse transform.
+        """
+        self._check(features)
         if skip_dims:
             dmin, dmax = min(skip_dims), max(skip_dims)
             if dmin < 0 or dmax >= self.dim:

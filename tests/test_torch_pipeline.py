@@ -355,7 +355,8 @@ def test_overlapped_pass_two_equals_sequential(corpus, no_energy_dither):
     out = pipeline.extract_features(
         copy.deepcopy(config), utterances, device='cpu')
     manager = PipelineManager(
-        pipeline.init_config(copy.deepcopy(config)), utterances)
+        pipeline.init_config(copy.deepcopy(config)), utterances,
+        device='cpu')
     triplets = []
     pipeline._pass_one(manager, list(utterances), 'cpu',
                        torch.Generator().manual_seed(0),

@@ -174,7 +174,7 @@ def test_pipeline_pass_two_end_to_end(wav_file):
     # rebuild one utterance by hand from the same pass-1 state
     manager = pipeline.PipelineManager(
         pipeline.init_config(config), utts,
-        log=pipeline.get_logger('t', 'warning'))
+        log=pipeline.get_logger('t', 'warning'), device='cpu')
     log = pipeline.get_logger('t', 'warning')
     triplets = pipeline._stagewise_pass_one(
         manager, list(utts), 'cpu', torch.Generator(), log, None, 1)

@@ -27,7 +27,8 @@ from shennong_tpu_torch.utterances import Utterances
 NEW_COUNTERS = (
     'calls', 'call_s', 'plan_s', 'decode_wait_s', 'dispatch_front_s',
     'dispatch_pitch_s', 'drain_s', 'pass2_join_s', 'pass2_utts',
-    'pass2_backlog_utts', 'pass2_cmvn_s', 'pass2_delta_s', 'pass2_concat_s')
+    'pass2_backlog_utts', 'pass2_pack_s', 'pass2_compute_s', 'pass2_unpack_s',
+    'pass2_kernel_utts')
 
 #: disjoint intervals of the call's own thread
 MAIN_THREAD = ('plan_s', 'decode_wait_s', 'dispatch_s', 'fetch_s',
@@ -36,8 +37,8 @@ MAIN_THREAD = ('plan_s', 'decode_wait_s', 'dispatch_s', 'fetch_s',
 NEW_SPANS = (
     'extract_features', 'pipeline.plan', 'pass1.plan', 'stream.plan',
     'decode', 'decode.wait', 'pass1.front', 'pass1.vad', 'pass1.pitch',
-    'pass1.pack', 'pass1.drain', 'pass2.join', 'pass2.cmvn', 'pass2.delta',
-    'pass2.concat')
+    'pass1.pack', 'pass1.drain', 'pass2.join', 'pass2.pack', 'pass2.compute',
+    'pass2.unpack')
 
 #: two speakers, one batch
 DURATIONS = (9000, 17000, 12500, 30000, 22000, 16000)
@@ -108,6 +109,7 @@ def test_every_new_counter_is_written(call):
     assert counts['calls'] == 1
     # the CPU launches no hand-written kernel
     assert not [key for key in counts if key.startswith('launches.')]
+    assert counts['pass2_kernel_utts'] == 0
 
 
 def test_pass_two_counts_every_utterance(call):
@@ -118,7 +120,7 @@ def test_pass_two_counts_every_utterance(call):
 
 def test_pass_two_steps_fit_inside_pass_two(call):
     counts, _, _ = call
-    steps = ('pass2_cmvn_s', 'pass2_delta_s', 'pass2_concat_s')
+    steps = ('pass2_pack_s', 'pass2_compute_s', 'pass2_unpack_s')
     assert all(counts[key] > 0 for key in steps)
     assert sum(counts[key] for key in steps) <= counts['pass2_s']
 
@@ -152,9 +154,9 @@ def test_stage_spans_nest_in_the_dispatch_on_its_thread(call):
 
 def test_pass_two_steps_nest_in_pass_two_on_its_thread(call):
     _, spans, pass_two = call
-    for name in ('pass2', 'pass2.cmvn', 'pass2.delta', 'pass2.concat'):
+    for name in ('pass2', 'pass2.pack', 'pass2.compute', 'pass2.unpack'):
         assert {tid for tid, _, _ in spans[name]} == {pass_two}, name
-    for name in ('pass2.cmvn', 'pass2.delta', 'pass2.concat'):
+    for name in ('pass2.pack', 'pass2.compute', 'pass2.unpack'):
         assert inside(spans[name], spans['pass2']), name
     # the caller waits for the worker on its own thread
     assert inside(spans['pass2.join'], spans['extract_features'])
