@@ -3,22 +3,35 @@
 ``python3 perfbench/run.py --workload <cell> --seed <n> --seconds <s>
 --trace <0|1>`` from the root of a checkout. Set-up writes the cell's
 corpus from the seed (WAV files under the run's ``TMPDIR``, read back
-through the port's own decode path) and warms the port with one untimed
-call over it. The window is a closed loop of
+through the port's own decode path), runs the harness's ``prepare``
+(:mod:`perfbench.harness`: what else the configuration needs, merged
+into the pipeline configuration) and warms the port with one untimed
+call over the corpus. The window is a closed loop of
 ``extract_features`` over the whole corpus, each call ended by a
 device synchronisation, until ``--seconds`` have passed: the last call
-may run past them by up to one call. ``xrt`` is the audio seconds of
+may run past them by up to one call. ``xrt``, the audio seconds of
 those calls over the wall from the first call's start to the last
-call's end.
+call's end, goes to standard error.
 
-With ``--trace 1`` the window runs under ``torch.profiler`` and the
-run reports the per-layer metrics instead (each read by its module in
-``perfbench/metrics/``), with the device's busy time and a breakdown.
+With ``--trace 0`` the run reports the cell's end-to-end metrics:
+``setup_s`` and ``xrt`` from the host's clock, and those of the
+device's trace (``source`` ``device_trace``) each by its module in
+``perfbench/metrics/``, over a trace of the card's operations alone
+taken around the window. With ``--trace 1`` the window runs under
+``torch.profiler`` with the host's operations and the port's spans,
+and the run reports the per-layer metrics instead (each read by its
+module), with the device's busy time and a breakdown.
 
-After the window the outputs of every call are checked
-(:mod:`perfbench.check`); the last line of standard output is the
+After the window the outputs of every call are checked: each
+utterance's shape against the harness's ``expected_shape``, the
+compared utterances by the harness's ``compare`` (:mod:`perfbench.check`
+for what every harness shares); the last line of standard output is the
 result, and the numbers compared, each beside its limit, close both
 the result and standard error.
+
+This module knows no pipeline: a configuration of a new shape comes
+with its own harness module and files, and edits none of these
+(:mod:`perfbench.manifest` lists them).
 """
 
 import argparse
@@ -34,6 +47,7 @@ import tempfile
 import time
 
 from perfbench import check, corpus, guard, tracing
+from perfbench.harness import merge
 from perfbench.manifest import HERE, Manifest
 
 #: the program's random source (dither, pitch noise) is seeded with the
@@ -96,6 +110,24 @@ def synchronize(device):
         torch.cuda.synchronize()
 
 
+def reads_device(cell):
+    """Whether an end-to-end metric of the cell is read from the
+    device's trace."""
+    return any(m['source'] == 'device_trace' for m in cell.end_to_end)
+
+
+def device_profiler(on_card):
+    """A profiler of the card's operations alone (on the CPU, which has
+    none, of the host's), for the end-to-end metrics read from the
+    device's trace: it records no host operation or span, so it leaves
+    the host's work as it is."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    return torch.profiler.profile(activities=[
+        ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU])
+
+
 def measure(cell, seed, seconds, trace, device, start, workdir):
     """Set up, run the window and check it. Returns (result dict without
     ``device``'s name, the checks, a list of lines for standard
@@ -103,19 +135,20 @@ def measure(cell, seed, seconds, trace, device, start, workdir):
     import numpy as np
     import torch
 
-    from perfbench.reference.pipeline import Reference
     from shennong_tpu_torch import Utterances, pipeline
     from shennong_tpu_torch.logger import null_logger
     from shennong_tpu_torch.parallel.profiler import (
         counters, profiler_options)
 
-    config = cell.config['pipeline']
-    rate = int(cell.config['sample_rate'])
+    harness = cell.harness
+    rate = harness.sample_rate
     on_card = torch.device(device).type == 'cuda'
 
     entries, samples = corpus.write_corpus(cell.traffic, seed, workdir,
                                            device)
     written = time.perf_counter()
+    config = merge(cell.pipeline, harness.prepare(seed, workdir, device))
+    prepared = time.perf_counter()
     utterances = Utterances(entries)
     quiet = null_logger()
     # one untimed call over the corpus warms what the timed ones use:
@@ -142,6 +175,7 @@ def measure(cell, seed, seconds, trace, device, start, workdir):
     compared = check.compared_names(samples, entries, cell.traffic, seed)
     shapes, outputs, walls = [], [], []
     profiler = (torch.profiler.profile(**profiler_options()) if trace
+                else device_profiler(on_card) if reads_device(cell)
                 else contextlib.nullcontext())
     counters.reset()
     with profiler as prof:
@@ -168,11 +202,7 @@ def measure(cell, seed, seconds, trace, device, start, workdir):
     counts = counters.snapshot()
     audio_s = len(walls) * sum(samples.values()) / rate
 
-    reference = Reference(config, rate, device)
-    columns = (int(config['delta']['order']) + 1) * int(
-        config[reference.kind]['num_ceps']) + check.PITCH_COLUMNS
-    expected = [(check.expected_rows(reference, samples[name]), columns)
-                for name in names]
+    expected = [harness.expected_shape(samples[name]) for name in names]
     failed = sum(check.count_failures(call, expected) for call in shapes)
     outputs = [{name: np.asarray(data) for name, data in call.items()}
                for call in outputs]
@@ -181,74 +211,75 @@ def measure(cell, seed, seconds, trace, device, start, workdir):
 
     result = {'correct': False, 'attempted': attempted, 'failed': failed}
     lines = [f'set-up {setup_s:.3f} s: corpus written at '
-             f'{written - start:.3f} s, warm-up {warmed - written:.3f} s; '
+             f'{written - start:.3f} s, prepared at {prepared - start:.3f} '
+             f's, warm-up {warmed - prepared:.3f} s; '
              f'{torch.get_num_threads()} host threads a pool',
              f'calls {len(walls)}: walls ' + ', '.join(
-        f'{w:.4f}' for w in walls) + f' s; window {window_s:.4f} s']
-    if trace:
+        f'{w:.4f}' for w in walls) + f' s; window {window_s:.4f} s; '
+             f'xrt {audio_s / window_s!r} audio_s/s']
+    run = None
+    if trace or reads_device(cell):
         begin = time.perf_counter()
-        frames = [reference.pitch.num_frames(n) for n in samples.values()]
-        run = tracing.collect(
-            prof, audio_s, counts, frames * len(walls),
-            int(reference.pitch.lags.shape[0]))
+        run = tracing.collect(prof, audio_s, counts, harness.trace_inputs(
+            list(samples.values()) * len(walls)))
         del prof
-        metrics = {}
-        for metric in cell.per_layer:
-            value = cell.manifest.reader(metric['name'])(run)
-            if value is not None:
-                metrics[metric['name']] = {'value': value,
-                                           'unit': metric['unit']}
-        result['metrics'] = metrics
+        lines.append(f'trace of {len(run.device)} device operations read '
+                     f'in {time.perf_counter() - begin:.1f} s; busy '
+                     f'{run.busy_us() / 1e6!r} s, of which kernels '
+                     f'{run.busy_us(tracing.is_kernel) / 1e6!r} s')
+    if trace:
+        result['metrics'] = reported(cell, cell.per_layer, run)
         result['busy_s'] = run.busy_us() / 1e6
         result['window_s'] = run.window_us / 1e6
         result['breakdown'] = tracing.breakdown(run)
-        lines.append(f'trace of {len(run.device)} device operations read '
-                     f'in {time.perf_counter() - begin:.1f} s')
     else:
-        values = {'xrt': audio_s / window_s, 'setup_s': setup_s}
-        result['metrics'] = {
-            m['name']: {'value': values[m['name']], 'unit': m['unit']}
-            for m in cell.end_to_end}
+        result['metrics'] = reported(
+            cell, cell.end_to_end, run,
+            {'xrt': audio_s / window_s, 'setup_s': setup_s})
     result['memory_peak_bytes'] = memory_peak
 
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    readings, delta_rms, reference_s = compare(
-        cell, entries, compared, outputs, device, seed)
+    begin = time.perf_counter()
+    readings, details = compare(cell, entries, compared, outputs, device,
+                                seed)
     checks = {name: {'value': value, 'limit': cell.limits[name]}
               for name, value in readings.items()}
     checks['failed'] = {'value': failed, 'limit': 0}
     result['correct'] = bool(attempted) and all(
         c['value'] <= c['limit'] for c in checks.values())
     lines.append(f'reference check of {len(compared)} utterances in '
-                 f'{reference_s:.1f} s; feat_rms of the delta pitch, per '
-                 f'frame and smoothed: {delta_rms[0]!r} {delta_rms[1]!r}')
+                 f'{time.perf_counter() - begin:.1f} s; ' + '; '.join(
+                     f'{key} {value!r}' for key, value in details.items()))
     return result, checks, lines
 
 
+def reported(cell, metrics, run, clock=None):
+    """``{name: {'value', 'unit'}}`` of ``metrics``: each the host's
+    clock gives from ``clock``, the others by their readers over the
+    traced ``run``; a metric whose reader found nothing is left out."""
+    clock = clock or {}
+    values = {}
+    for metric in metrics:
+        name = metric['name']
+        value = (clock[name] if name in clock
+                 else cell.manifest.reader(name)(run))
+        if value is not None:
+            values[name] = {'value': value, 'unit': metric['unit']}
+    return values
+
+
 def compare(cell, entries, compared, outputs, device, seed):
-    """The numbers of :func:`check.numbers` for the program's outputs,
-    the delta pitch's ``feat_rms`` reading, and the seconds the
-    reference took."""
-    import torch
-
-    from perfbench.reference.pipeline import Reference
-
-    begin = time.perf_counter()
-    config = cell.config['pipeline']
-    rate = int(cell.config['sample_rate'])
-    plain = Reference(config, rate, device).extract(entries, compared)
-    generator = torch.Generator(device=device).manual_seed(int(seed) + 2)
-    dithered = Reference(config, rate, device, generator=generator)
-    front = {name: block.cpu().numpy() for name, block in
-             dithered.front_end(entries, compared).items()}
-    columns = next(iter(front.values())).shape[1]
-    reach = check.dither_rms(plain, front, columns)
-    numbers, delta_rms = check.numbers(
-        outputs, plain, reach,
-        check.noise_reach(config['pitch']['postprocessing']))
-    return numbers, delta_rms, time.perf_counter() - begin
+    """The harness's ``(numbers, details)`` for the program's outputs;
+    raises where a number has no limit or a limit no number."""
+    numbers, details = cell.harness.compare(entries, compared, outputs,
+                                            device, seed)
+    if set(numbers) != set(cell.limits):
+        raise ValueError(
+            f'{cell.name}: the harness gives the numbers {sorted(numbers)}, '
+            f'the checks file has limits for {sorted(cell.limits)}')
+    return numbers, details
 
 
 def result_line(result, checks, kind, chips, power):
@@ -276,7 +307,7 @@ def main(argv, start):
     try:
         cell = Manifest().cell(args.workload)
         kind = require_cards(cell.chips)
-    except (KeyError, FileNotFoundError, NoCard) as error:
+    except (KeyError, ValueError, FileNotFoundError, NoCard) as error:
         print(f'perfbench: {error}', file=sys.stderr)
         return 2
     found = guard.loaded()

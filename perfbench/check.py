@@ -1,13 +1,17 @@
-"""Whether what the timed calls returned is correct.
+"""Whether what the timed calls returned is correct: the arithmetic
+that every pipeline's harness (:mod:`perfbench.harness`) shares, and the
+numbers of the Kaldi pitch pipelines.
 
-Every utterance of every timed call has to come back with the frame
-count Kaldi's arithmetic gives it and 42 columns; one that does not
-counts as failed. The utterances of a few speakers drawn from the seed,
-the longest utterance's speaker among them, count as failed where a
-value is not finite, and are held against the plain float64 reference
-(:mod:`perfbench.reference`), which decodes the same WAV files and works
-everything out again. Two numbers, each under its own limit
-(``perfbench/checks/<workload>.json``):
+Every utterance of every timed call has to come back in the shape its
+harness expects (:func:`count_failures`); one that does not counts as
+failed. The utterances of a few speakers drawn from the seed, the
+longest utterance's speaker among them (:func:`compared_names`), count
+as failed where a value is not finite (:func:`count_unfinished`), and
+are held against the harness's plain reference. The harness of Kaldi
+pitch (:mod:`perfbench.harness.kaldi_pitch`) holds them against the
+plain float64 reference (:mod:`perfbench.reference`), which decodes the
+same WAV files and works everything out again, by two numbers, each
+under its own limit (``perfbench/checks/<workload>.json``):
 
 - ``feat_rms``: every column that carries a configured random draw:
   the front end's (cepstra or PLP cepstra with the log energy, their
@@ -63,13 +67,6 @@ def compared_names(samples, entries, mix, seed):
               torch.randperm(len(speakers), generator=rng)[:count].tolist()}
     chosen.add(speaker_of[max(samples, key=samples.get)])
     return [name for name, _, speaker in entries if speaker in chosen]
-
-
-def expected_rows(reference, nsamples):
-    """Output frames of an utterance: the smaller of the front end's
-    and the pitch's frame counts."""
-    return min(reference.front.num_frames(nsamples),
-               reference.pitch.num_frames(nsamples))
 
 
 def count_failures(shapes, expected):

@@ -4,7 +4,8 @@
 --control-seeds <n>...`` on a card: for each seed, the cell's corpus,
 one ``extract_features`` call over it as the window makes them (the
 lower readings: sound runs of the program) or the control in its
-place (the upper readings), each held against the reference as
+place (the upper readings), each held against the reference by the
+cell's harness (:mod:`perfbench.harness`), as
 :func:`perfbench.bench.compare` holds a run. One JSON line per seed.
 
 The control is named by the cell's ``perfbench/checks/<cell>.json``:
@@ -32,19 +33,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from perfbench import bench, check, corpus  # noqa: E402
+from perfbench.harness import merge  # noqa: E402
 from perfbench.manifest import Manifest  # noqa: E402
 
 
-def outputs_of(cell, entries, compared, seed, device, control):
-    """One call's outputs of the compared utterances: the program's, or
-    the control's named by ``control``."""
+def outputs_of(config, entries, compared, seed, device, control):
+    """One call's outputs of the compared utterances under the pipeline
+    configuration ``config``: the program's, or the control's named by
+    ``control``."""
     import numpy as np
     import torch
 
     from shennong_tpu_torch import Utterances, pipeline
     from shennong_tpu_torch.logger import null_logger
 
-    config = cell.config['pipeline']
     fetch = 'bfloat16' if control == 'program_bfloat16_fetch' else None
     matmul, cudnn = (torch.backends.cuda.matmul.allow_tf32,
                      torch.backends.cudnn.allow_tf32)
@@ -71,18 +73,20 @@ def readings(cell, seed, device, workdir, control=None, warm=False):
 
     entries, samples = corpus.write_corpus(cell.traffic, seed, workdir,
                                            device)
+    config = merge(cell.pipeline, cell.harness.prepare(seed, workdir, device))
     if warm:
         pipeline.extract_features(
-            copy.deepcopy(cell.config['pipeline']), Utterances(entries),
-            device=device, log=null_logger())
+            copy.deepcopy(config), Utterances(entries), device=device,
+            log=null_logger())
     compared = check.compared_names(samples, entries, cell.traffic, seed)
     begin = time.perf_counter()
-    outputs = outputs_of(cell, entries, compared, seed, device, control)
+    outputs = outputs_of(config, entries, compared, seed, device, control)
     call_s = time.perf_counter() - begin
-    numbers, delta_rms, reference_s = bench.compare(
-        cell, entries, compared, [outputs], device, seed)
-    return dict(numbers, delta_rms=delta_rms, call_s=call_s,
-                reference_s=reference_s, compared=len(compared))
+    numbers, details = bench.compare(cell, entries, compared, [outputs],
+                                     device, seed)
+    return dict(numbers, **details, call_s=call_s,
+                reference_s=time.perf_counter() - begin - call_s,
+                compared=len(compared))
 
 
 def main(argv=None):

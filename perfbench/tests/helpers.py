@@ -32,8 +32,8 @@ def add_file(root, relative, content):
 
 
 def tiny_manifest(directory):
-    """A copy of the benchmark with ``<config>.tiny`` cells (the real
-    cells' limits), and its :class:`Manifest`."""
+    """A copy of the benchmark with ``<config>.tiny`` cells (the limits
+    of the configuration's first cell), and its :class:`Manifest`."""
     root = copy_checkout(directory)
     path = os.path.join(root, 'BENCHMARK.json')
     with open(path) as handle:
@@ -41,12 +41,13 @@ def tiny_manifest(directory):
     add_file(root, 'perfbench/traffic/tiny.json', TINY)
     for config in data['configs']:
         cell = f'{config["name"]}.tiny'
+        real = next(w['name'] for w in data['workloads']
+                    if w['config'] == config['name'])
         data['workloads'].append(
             {'name': cell, 'config': config['name'], 'traffic': 'tiny',
              'chips': 1, 'why': 'a test size'})
         shutil.copy(
-            os.path.join(root, 'perfbench', 'checks',
-                         f'{config["name"]}.test_clean.json'),
+            os.path.join(root, 'perfbench', 'checks', f'{real}.json'),
             os.path.join(root, 'perfbench', 'checks', f'{cell}.json'))
     with open(path, 'w') as handle:
         json.dump(data, handle)

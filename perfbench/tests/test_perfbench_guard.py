@@ -17,6 +17,15 @@ def test_top_level_names_are_compared_whole():
         'shennong_tpu_torch']) == ['flax', 'jax', 'jaxlib', 'shennong_tpu']
 
 
+#: code that loads every harness module of the checkout
+LOAD_HARNESSES = (
+    'import os\n'
+    'from perfbench.manifest import HERE, Manifest\n'
+    'for name in os.listdir(os.path.join(HERE, "harness")):\n'
+    '    if name.endswith(".py") and name != "__init__.py":\n'
+    '        Manifest().harness(name[:-3])\n')
+
+
 def modules_after(code):
     out = subprocess.run(
         [sys.executable, '-c', code + '\nimport sys\n'
@@ -27,17 +36,21 @@ def modules_after(code):
 
 
 def test_the_harness_and_its_reference_load_no_jax():
+    """Every module of the harness, each pipeline's harness module
+    among them."""
     loaded = modules_after(
         'import perfbench.bench, perfbench.check, perfbench.control, '
         'perfbench.tracing, perfbench.roofline\n'
         'import perfbench.reference.pipeline\n'
-        'import shennong_tpu_torch.pipeline')
+        + LOAD_HARNESSES + 'import shennong_tpu_torch.pipeline')
     assert not loaded & guard.FORBIDDEN
 
 
 def test_the_reference_loads_nothing_of_the_port():
+    """Nor does a pipeline's harness module, which holds its
+    reference."""
     loaded = modules_after(
         'import perfbench.reference.pipeline, perfbench.check, '
-        'perfbench.corpus, perfbench.roofline')
+        'perfbench.corpus, perfbench.roofline\n' + LOAD_HARNESSES)
     assert 'shennong_tpu_torch' not in loaded
     assert not loaded & guard.FORBIDDEN

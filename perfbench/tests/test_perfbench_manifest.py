@@ -7,6 +7,8 @@ import re
 
 import pytest
 
+from perfbench.harness import Harness
+from perfbench.harness.kaldi_pitch import KaldiPitch
 from perfbench.manifest import ROOT, Manifest
 from perfbench.tests.helpers import add_file, copy_checkout
 
@@ -63,10 +65,11 @@ def test_keys_names_and_units(manifest):
     for workload in data['workloads']:
         assert NAME.match(workload['config'])
         assert NAME.match(workload['traffic'])
-        assert workload['chips'] == 1
+        assert workload['chips'] in (1, 4)
     for config in data['configs']:
         assert config['file'].startswith('perfbench/')
-        assert not config['reduced']
+        assert len(config['reduced']) <= 16
+        assert all(NAME.match(key) for key in config['reduced'])
     ends = {m['name'] for m in data['end_to_end']}
     cells = {w['name'] for w in data['workloads']}
     for metric in data['per_layer']:
@@ -79,8 +82,9 @@ def test_every_cell_finds_its_files(manifest):
     for workload in manifest.data['workloads']:
         cell = manifest.cell(workload['name'])
         assert 'pipeline' in cell.config
+        assert isinstance(cell.harness, Harness)
         assert cell.traffic['utterances'] > 0
-        assert set(cell.limits) == {'feat_rms', 'pitch_off'}
+        assert cell.limits
         assert cell.end_to_end and cell.per_layer
         for metric in cell.per_layer:
             assert callable(manifest.reader(metric['name']))
@@ -119,7 +123,7 @@ def test_new_files_are_taken_without_editing_any(tmp_path):
         'traffic': 'short', 'chips': 1, 'why': 'a test'})
     data['per_layer'].append({
         'name': 'calls', 'unit': 'calls', 'better': 'higher',
-        'source': 'host_clock', 'layer': 'harness', 'moves': 'xrt',
+        'source': 'host_clock', 'layer': 'harness', 'moves': 'setup_s',
         'workloads': ['mfcc40_pitch.short']})
     json.dump(data, open(path, 'w'))
 
@@ -140,3 +144,13 @@ def test_new_files_are_taken_without_editing_any(tmp_path):
                    if os.path.exists(os.path.join(root, 'perfbench', s,
                                                   name)))
         assert open(os.path.join(root, 'perfbench', sub, name)).read() == text
+
+
+def test_a_configuration_without_a_harness_key_takes_kaldi_pitch(manifest):
+    for name in ('mfcc_pitch', 'rastaplp_pitch'):
+        cell = manifest.cell(f'{name}.test_clean')
+        assert 'harness' not in cell.config
+        # loaded by path: a class of its own, of the same name
+        assert type(cell.harness).__name__ == KaldiPitch.__name__
+        assert cell.harness.config is cell.pipeline
+        assert cell.harness.sample_rate == 16000

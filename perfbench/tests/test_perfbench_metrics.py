@@ -5,7 +5,7 @@ import os
 
 import pytest
 
-from perfbench import roofline
+from perfbench import roofline, tracing
 from perfbench.manifest import HERE, Manifest
 from perfbench.tracing import TracedRun, breakdown
 
@@ -33,7 +33,12 @@ def window(**changes):
 
 
 def test_every_metric_of_the_manifest_has_a_reader():
-    names = {m['name'] for m in Manifest().data['per_layer']}
+    """Every per-layer metric, and every end-to-end metric of the
+    device's trace (the host's clock gives the others)."""
+    data = Manifest().data
+    names = {m['name'] for m in data['per_layer']} | {
+        m['name'] for m in data['end_to_end']
+        if m['source'] == 'device_trace'}
     assert names <= set(READERS)
 
 
@@ -51,12 +56,31 @@ def test_the_readers_values():
     work = roofline.viterbi_work([598] * 64, 417)
     assert read['viterbi_roofline'] == pytest.approx(
         100 * roofline.bound_s(work) / 0.7)
+    assert read['corpus_xrt'] == pytest.approx(2 * 6480.0 / 20)
+    # the kernels' 0.7 s of the 1 s busy
+    assert read['card_xrt'] == pytest.approx(2 * 6480.0 / 0.7)
 
 
 def test_a_reader_with_nothing_to_read_returns_nothing():
     run = window(counters={}, spans=[], device=[], span_totals={})
     for name in READERS:
+        if name != 'corpus_xrt':  # the calls are there to read
+            assert Manifest().reader(name)(run) is None, name
+    run = window(calls=[], counters={}, spans=[], device=[], span_totals={})
+    for name in READERS:
         assert Manifest().reader(name)(run) is None, name
+
+
+def test_a_trace_of_the_device_alone_is_busy_over_all_of_it():
+    """Without the host's call spans the window is the whole trace; the
+    kernels' union leaves the copies out."""
+    run = window(calls=[], spans=[])
+    assert run.busy_us() == pytest.approx(1e6)
+    assert run.busy_us(tracing.is_kernel) == pytest.approx(0.7e6)
+    assert Manifest().reader('card_xrt')(run) == pytest.approx(
+        2 * 6480.0 / 0.7)
+    assert Manifest().reader('corpus_xrt')(run) is None
+    assert breakdown(run)['idle_gaps'] == []
 
 
 def test_the_breakdown_labels_idle_gaps_by_the_open_spans():

@@ -25,7 +25,7 @@ def test_every_reader_is_in_the_manifest():
     for name in EXPECTED:
         assert entries[name]['source'] == 'program_counter', name
         assert entries[name]['layer'] == 'pipeline pass 2', name
-        assert entries[name]['moves'] == 'xrt', name
+        assert entries[name]['moves'] == 'setup_s', name
         assert 'workloads' not in entries[name], name
 
 
@@ -37,8 +37,7 @@ def test_a_reader_reads_its_counters(name):
 @pytest.mark.parametrize('name', sorted(EXPECTED))
 def test_a_reader_without_its_counters_returns_nothing(name):
     assert read(name, {}) is None
-    # the parent's counters: pass 2 split into its CMVN, delta and
-    # concatenation steps
+    # the call's accounting without pass 2's steps
     assert read(name, COUNTERS) is None
 
 

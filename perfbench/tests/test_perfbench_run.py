@@ -82,8 +82,11 @@ def test_a_sound_run_is_correct_and_its_line_has_the_contract_s_keys(
     names = {m['name'] for m in expected}
     assert set(line['metrics']) <= names
     if not trace:
-        assert set(line['metrics']) == names
-        assert line['metrics']['xrt']['unit'] == 'audio_s/s'
+        # a run on the CPU has no device's trace to read
+        assert set(line['metrics']) == {
+            m['name'] for m in expected if m['source'] != 'device_trace'}
+        assert line['metrics']['setup_s']['unit'] == 's'
+        assert any(' xrt ' in text for text in lines)
     else:
         assert set(line['breakdown']) == {'device_ops', 'idle_gaps'}
     assert set(checks) == {'feat_rms', 'pitch_off', 'failed'}
@@ -114,6 +117,13 @@ def scale_delta_pitch(original, factor):
     return broken
 
 
+def identity_affine(stats, *args, **kwargs):
+    """CMVN skipped: every group's affine the identity, so pass 2 leaves
+    the features as pass 1 gave them."""
+    dim = np.asarray(stats).shape[1] - 1
+    return np.ones(dim), np.zeros(dim)
+
+
 def half_the_statistics(original):
     """Every second utterance left out of its CMVN group's mean."""
     count = {'n': 0}
@@ -131,7 +141,6 @@ def half_the_statistics(original):
 def test_a_broken_timed_path_is_not_correct(manifest, tmp_path, monkeypatch,
                                             fault):
     from shennong_tpu_torch import pipeline
-    from shennong_tpu_torch.pipeline_manager import PipelineManager
 
     if fault == 'answer_altered':
         monkeypatch.setattr(pipeline, '_pass_two',
@@ -144,8 +153,8 @@ def test_a_broken_timed_path_is_not_correct(manifest, tmp_path, monkeypatch,
         monkeypatch.setattr(pipeline, '_pass_two', scale_delta_pitch(
             pipeline._pass_two, -1.0 if fault.endswith('sign') else 0.1))
     elif fault == 'state_unchanged':
-        monkeypatch.setattr(PipelineManager, 'apply_cmvn',
-                            lambda self, utterance, features: features)
+        # where pass 2 reads each CMVN group's statistics
+        monkeypatch.setattr(pipeline, 'cmvn_affine', identity_affine)
     else:
         monkeypatch.setattr(pipeline, 'extract_features', functools.partial(
             pipeline.extract_features, fetch_dtype='bfloat16'))
@@ -172,7 +181,7 @@ def test_a_missing_answer_counts_as_failed(manifest, tmp_path, monkeypatch):
 def test_the_rastaplp_cell_runs(manifest, tmp_path):
     result, checks, _ = drive(manifest, tmp_path, cell='rastaplp_pitch.tiny')
     assert result['correct'], checks
-    assert np.isfinite(result['metrics']['xrt']['value'])
+    assert np.isfinite(result['metrics']['setup_s']['value'])
 
 
 def read_control(manifest, tmp_path, control, device):
