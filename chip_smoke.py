@@ -2827,22 +2827,13 @@ def crepe_flops(channels):
     return flops + 2 * width * cin * crepe.BINS
 
 
-def crepe_full(card, entries):
-    """The CREPE CNN at the 'full' widths (channel multiplier 32) with
-    seeded synthetic weights, written to an npz and loaded through the
-    processor's ``weights`` (the normal loading path): timed over 16
-    utterances' frames (CUDA events, ms, TFLOP/s and share of the
-    float32 peak), peak memory, and the card against the CPU on 4
-    frames."""
-    import tempfile
-
-    from shennong_tpu_torch import Utterances
+def crepe_params(capacity, seed):
+    """Seeded synthetic CREPE parameters at a capacity's widths, in the
+    converted keras layout."""
     from shennong_tpu_torch.models import crepe
-    from shennong_tpu_torch.processor.pitch_crepe import CrepePitchProcessor
 
-    phase = 'crepe full'
-    rng = np.random.RandomState(32)
-    mult = crepe.CAPACITY_MULTIPLIER['full']
+    rng = np.random.RandomState(seed)
+    mult = crepe.CAPACITY_MULTIPLIER[capacity]
     params, cin = {}, 1
     for i, (filters, width) in enumerate(
             zip(crepe.LAYER_FILTERS, crepe.LAYER_WIDTHS), start=1):
@@ -2859,10 +2850,27 @@ def crepe_full(card, entries):
     params['classifier/kernel'] = (rng.randn(4 * cin, 360)
                                    / np.sqrt(4 * cin)).astype(np.float32)
     params['classifier/bias'] = np.zeros(360, np.float32)
+    return params
 
+
+def crepe_full(card, entries):
+    """The CREPE CNN at the 'full' widths (channel multiplier 32) with
+    seeded synthetic weights, written to an npz and loaded through the
+    processor's ``weights`` (the normal loading path): timed over 16
+    utterances' frames (CUDA events, ms, TFLOP/s and share of the
+    float32 peak), peak memory, and the card against the CPU on 4
+    frames."""
+    import tempfile
+
+    from shennong_tpu_torch import Utterances
+    from shennong_tpu_torch.models import crepe
+    from shennong_tpu_torch.processor.pitch_crepe import CrepePitchProcessor
+
+    phase = 'crepe full'
+    mult = crepe.CAPACITY_MULTIPLIER['full']
     with tempfile.TemporaryDirectory() as directory:
         path = os.path.join(directory, 'model-full.npz')
-        np.savez(path, **params)
+        np.savez(path, **crepe_params('full', 32))
         proc = CrepePitchProcessor(model_capacity='full', weights=path)
         gpu_model = proc._model('cuda')
         model = proc._model('cpu')

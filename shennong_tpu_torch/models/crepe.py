@@ -284,8 +284,28 @@ def _strided_frames(segments, nframes, hop):
     return segments.unfold(-1, FRAME, hop)[:, :nframes]
 
 
+def _real_frame_index(counts, rows, chunk_frames, device):
+    """[2, n] (row, frame) indices of the frames ``t < counts[row]``,
+    built on the host and uploaded without waiting for the device (from
+    page-locked memory on CUDA); None when every frame is real."""
+    counts = np.asarray(counts, np.int64)
+    if counts.shape != (rows,) or (
+            (counts < 0) | (counts > chunk_frames)).any():
+        raise ValueError(
+            f'counts must hold {rows} counts in [0, {chunk_frames}]')
+    if (counts == chunk_frames).all():
+        return None
+    starts = np.repeat(np.cumsum(counts) - counts, counts)
+    index = torch.from_numpy(np.stack([
+        np.repeat(np.arange(counts.shape[0]), counts),
+        np.arange(starts.shape[0]) - starts]))
+    if torch.device(device).type == 'cuda':
+        return index.pin_memory().to(device, non_blocking=True)
+    return index.to(device)
+
+
 def forward_audio_chunk(model, segments, last_owner, hop, chunk_frames,
-                        halo):
+                        halo, counts=None):
     """Framing, the reference normalization and the CNN, on the device
     of ``segments``, batched.
 
@@ -299,6 +319,12 @@ def forward_audio_chunk(model, segments, last_owner, hop, chunk_frames,
     through an overlapping view leaves it; the halo (at least
     :func:`required_halo` frames) makes the kept frames match the
     whole-signal computation.
+
+    ``counts``, when given, holds each row's real frames on the host
+    (B ints in [0, chunk_frames]): the CNN then runs on frames ``t <
+    counts[row]`` alone, gathered from the framing's view, and the
+    other frames' salience is zero. Building and uploading their index
+    never waits for the device.
 
     Returns (salience [B, chunk_frames, 360], stats [B, chunk_frames,
     2] float32 packing each frame's argmax bin and maximum).
@@ -319,8 +345,15 @@ def forward_audio_chunk(model, segments, last_owner, hop, chunk_frames,
     audio2 = audio1 / torch.clamp(torch.gather(std, 1, owner), min=1e-38)
 
     frames = _strided_frames(audio2, nlocal, hop)[:, halo:halo + chunk_frames]
-    salience = model(frames.reshape(-1, FRAME)).reshape(
-        frames.shape[0], chunk_frames, -1)
+    index = None if counts is None else _real_frame_index(
+        counts, frames.shape[0], chunk_frames, segments.device)
+    if index is None:
+        salience = model(frames.reshape(-1, FRAME)).reshape(
+            frames.shape[0], chunk_frames, -1)
+    else:
+        rows, cols = index
+        salience = segments.new_zeros((frames.shape[0], chunk_frames, BINS))
+        salience[rows, cols] = model(frames[rows, cols])
     best, argmax = salience.max(dim=-1)
     return salience, torch.stack([argmax.to(torch.float32), best], dim=-1)
 

@@ -80,8 +80,10 @@ Counters (key: seam; span over the same interval, if any):
   ``pipeline._stagewise_pass_one``);
 - ``crepe_frames``, ``crepe_cnn_frames``, ``crepe_slices``: the
   batched path of ``process_all``: the model frames of its utterances
-  (``models.crepe.frame_count``), the frames its CNN ran (rows times
-  the frame bucket of every slice, padding included), and its slices;
+  (``models.crepe.frame_count``), the frames its CNN ran (the real
+  frames of every slice's rows, handed to ``forward_audio_chunk`` as
+  ``counts``: the padding up to the frame bucket and the empty rows
+  never reach the CNN), and its slices;
 - ``launches.<kernel>``: the hand-written kernels' launches,
   ``launches.viterbi_forward`` and ``launches.viterbi_backtrace``
   (``ops.cuda_viterbi``), ``launches.banded_viterbi``

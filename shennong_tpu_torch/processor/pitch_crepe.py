@@ -444,10 +444,11 @@ class CrepePitchProcessor(FeaturesProcessor):
                 owner = torch.full(
                     (1,), nframes - 1 - f0 + halo, dtype=torch.int32,
                     device=device)
-                sal, packed = crepe.forward_audio_chunk(
-                    model, segment, owner, hop, chunk, halo)
-                chunks.append(sal[0])
                 counts.append(min(chunk, nframes - f0))
+                sal, packed = crepe.forward_audio_chunk(
+                    model, segment, owner, hop, chunk, halo,
+                    counts=counts[-1:])
+                chunks.append(sal[0])
                 pending.append(_Fetch(packed))
         stats = [fetch.result() for fetch in pending]
         argm = [s[0, :keep, 0].astype(np.int32)
@@ -473,7 +474,9 @@ class CrepePitchProcessor(FeaturesProcessor):
 
         Utterances are grouped into frame-count buckets; each slice of
         a group runs framing, normalization and CNN as one batched
-        call over the raw audio, and only per-frame statistics plus the
+        call over the raw audio, the CNN on the utterances' real frames
+        alone (not the padding up to the bucket, nor the slice's empty
+        rows), and only per-frame statistics plus the
         decoded path's neighborhoods come to the host. With the host
         decode, a group splits into about four slices so that the CNN
         of later slices runs on the device while the host decodes the
@@ -596,9 +599,13 @@ class CrepePitchProcessor(FeaturesProcessor):
                         part = items[lo:lo + rows]
                         segments = np.zeros((rows, seg_len), np.float32)
                         owners = np.zeros(rows, np.int32)
+                        # real frames a row, 0 on the rows past the part:
+                        # the CNN runs on those frames alone
+                        counts = np.zeros(rows, np.int64)
                         for i, (_, _, data, nframes) in enumerate(part):
                             segments[i, pad_left:pad_left + len(data)] = data
                             owners[i] = nframes - 1 + halo
+                            counts[i] = nframes
                         with span('crepe.cnn', 'crepe_cnn_s'):
                             sal, packed = crepe.forward_audio_chunk(
                                 model,
@@ -606,9 +613,9 @@ class CrepePitchProcessor(FeaturesProcessor):
                                     as_int16_if_lossless(segments),
                                     device=device),
                                 torch.as_tensor(owners, device=device),
-                                hop, bucket, halo)
+                                hop, bucket, halo, counts=counts)
                         counters.add('crepe_slices')
-                        counters.add('crepe_cnn_frames', rows * bucket)
+                        counters.add('crepe_cnn_frames', int(counts.sum()))
                         counters.add('crepe_frames',
                                      sum(item[3] for item in part))
                         if device_decode:

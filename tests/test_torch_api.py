@@ -128,7 +128,8 @@ SIGNATURES = {
         'share/crepe/ as the JAX package does'),
     'models.crepe:forward_audio_chunk': (
         'params -> model: the CNN is the nn.Module models.crepe.Crepe, '
-        'not a parameter pytree'),
+        'not a parameter pytree; counts added: the CNN runs on each '
+        "row's real frames alone"),
     'parallel.stream:recycle': (
         'array -> tensor: the pool lends torch tensors'),
     'parallel.stream:decode_batch': (

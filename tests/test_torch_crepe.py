@@ -9,7 +9,9 @@ on CPU tensors (the plain versions of its kernels).
   with the shipped 'tiny' weights and seeded 'small'-width weights,
   1e-5 (two float32 convolution stacks summing in different orders);
 - ``forward_audio_chunk`` at hops 160 and 80 with three rows of
-  different owners (salience 1e-5, argmax equal), ``gather_neighborhood``
+  different owners (salience 1e-5, argmax equal), and with each row's
+  real frame counts against the same call without them (real frames
+  1e-6, argmax equal, the padding zero); ``gather_neighborhood``
   exact and ``decode_salience_chunk`` (cents 1e-4 relative, confidence
   1e-6);
 - the decoders: the float64 host decoders' paths equal (native and
@@ -17,7 +19,8 @@ on CPU tensors (the plain versions of its kernels).
   batched banded decoder's paths equal on masked lengths;
 - the processor (``process``, ``process_all`` with the host and the
   device decode, ``viterbi=False``, ``center=False``,
-  ``frame_shift=0.005``, the chunked path) at the tolerance of
+  ``frame_shift=0.005``, the chunked path, slices with empty rows
+  whose CNN runs the utterances' frames alone) at the tolerance of
   ``tests/processor/test_pitch_crepe.py`` (rtol 1e-4, atol 1e-3), the
   post-processor at 1e-3 with the noise at 0, and ``extract_features``
   with CREPE pitch, CMVN and deltas at 1e-3.
@@ -170,6 +173,101 @@ def test_forward_audio_chunk_matches_jax(hop):
             torch.from_numpy(segments.astype(np.int16)),
             torch.from_numpy(owners), hop, chunk, halo)
     assert torch.equal(sal16, sal)
+
+
+#: real frames a row of a 24-frame chunk: rows cut short, one row
+#: empty (as the rows past a slice's utterances), every row full
+COUNT_PATTERNS = {'short': [24, 13, 1], 'empty': [17, 0, 24],
+                  'full': [24, 24, 24]}
+
+
+@pytest.mark.parametrize('pattern', list(COUNT_PATTERNS))
+@pytest.mark.parametrize('hop', [160, 80])
+@pytest.mark.parametrize('capacity', ['tiny', 'small'])
+def test_forward_audio_chunk_runs_the_real_frames_alone(capacity, hop,
+                                                        pattern):
+    """With ``counts`` the CNN runs on each row's real frames alone:
+    their salience and maximum within 1e-6 of the call without it, the
+    same argmax bins, and zeros on every other frame."""
+    chunk, halo = 24, crepe.required_halo(hop)
+    seg_len, left = crepe.segment_geometry(hop, chunk, halo)
+    counts = np.array(COUNT_PATTERNS[pattern])
+    rng = np.random.RandomState(hop + len(pattern))
+    t = np.arange(seg_len) / 16000
+    segments = np.zeros((3, seg_len), np.float32)
+    for row, (f0, count) in enumerate(zip((110.0, 180.0, 260.0), counts)):
+        # a signal ending with its row's last real frame, as process_all
+        # lays an utterance out in its bucket
+        end = min(seg_len, left + (count - 1) * hop + 1024) if count else 0
+        segments[row, :end] = np.round(
+            8000 * np.sin(2 * np.pi * f0 * t[:end]) + 300 * rng.randn(end))
+    owners = torch.from_numpy(
+        np.where(counts > 0, counts - 1 + halo, 0).astype(np.int32))
+    params = (crepe.load_params('tiny') if capacity == 'tiny'
+              else small_params(hop))
+    model = crepe_from_numpy(params)
+
+    with torch.no_grad():
+        sal, stats = crepe.forward_audio_chunk(
+            model, torch.from_numpy(segments), owners, hop, chunk, halo)
+        packed, packed_stats = crepe.forward_audio_chunk(
+            model, torch.from_numpy(segments), owners, hop, chunk, halo,
+            counts=list(counts))
+    assert packed.shape == sal.shape == (3, chunk, 360)
+    assert packed_stats.shape == stats.shape == (3, chunk, 2)
+    real = torch.arange(chunk)[None, :] < torch.from_numpy(counts)[:, None]
+    np.testing.assert_allclose(packed[real].numpy(), sal[real].numpy(),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(packed_stats[real][:, 1].numpy(),
+                               stats[real][:, 1].numpy(), atol=1e-6, rtol=0)
+    assert torch.equal(packed_stats[real][:, 0], stats[real][:, 0])
+    assert not packed[~real].any()
+    if pattern == 'full':
+        assert torch.equal(packed, sal)
+    with pytest.raises(ValueError, match='counts'):
+        crepe.forward_audio_chunk(model, torch.from_numpy(segments), owners,
+                                  hop, chunk, halo, counts=[chunk + 1, 0, 0])
+
+
+@pytest.mark.parametrize('decode', ['host', 'device'])
+def test_process_all_runs_the_cnn_on_real_frames(wav_file, decode,
+                                                 monkeypatch):
+    """Utterances of mixed lengths, six in one frame bucket, so that a
+    slice has empty rows with either decode: the CNN runs as many frames
+    as the utterances have, and the features equal those of the CNN run
+    over every frame of every row."""
+    from shennong_tpu_torch.parallel.profiler import counters
+
+    items = [(f'u{i}', wav_file, 0.0, stop) for i, stop in enumerate(
+        (0.3, 0.5, 0.7, 0.9, 1.1, 1.2))]
+    items += [('long', wav_file, 0.0, 1.41), ('shifted', wav_file, 0.1, 1.4)]
+    utts = Utterances(items)
+    proc = pitch_crepe.CrepePitchProcessor(model_capacity='tiny',
+                                           decode=decode)
+    forward, slices = crepe.forward_audio_chunk, []
+
+    def spy(*args, counts=None):
+        slices.append((args[4], list(counts)))
+        return forward(*args, counts=counts)
+
+    monkeypatch.setattr(crepe, 'forward_audio_chunk', spy)
+    counters.reset()
+    ours = proc.process_all(utts, device='cpu')
+    counts = counters.snapshot()
+    assert counts['crepe_cnn_frames'] == counts['crepe_frames'] > 0
+    assert counts['crepe_cnn_frames'] == sum(sum(c) for _, c in slices)
+    assert counts['crepe_slices'] == len(slices) >= 2
+    # a slice with empty rows, and rows cut short of their bucket
+    assert any(0 in c for _, c in slices)
+    assert any(0 < n < chunk for chunk, c in slices for n in c)
+
+    monkeypatch.setattr(crepe, 'forward_audio_chunk',
+                        lambda *args, counts=None: forward(*args))
+    whole = proc.process_all(utts, device='cpu')
+    assert list(ours.keys()) == list(whole.keys())
+    for name in whole.keys():
+        assert ours[name].shape == whole[name].shape, name
+        np.testing.assert_allclose(ours[name].data, whole[name].data, **TOL)
 
 
 def peaked_salience(shape, seed):

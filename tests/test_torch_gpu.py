@@ -26,7 +26,9 @@ equal, features 1e-3). The banded Viterbi kernel of the CREPE device
 decode is held against its plain version on the card (paths equal,
 over repeated launches too), the CREPE CNN and the bottleneck network
 and filterbank on the card against the CPU (1e-4, float32 convolutions
-and products summing in other orders), and the CREPE processor's host
+and products summing in other orders), the CREPE CNN over each row's
+real frames against the same call over every frame (1e-5, and no
+synchronization inside the call), and the CREPE processor's host
 and device decodes on the card against the CPU. The DTW kernel of the
 ABX evaluator is held against its plain version on the card (1e-5 on
 real-valued costs or a near-tie proven in float64 by
@@ -584,6 +586,54 @@ def test_crepe_network_matches_cpu(cuda_device):
         cpu = crepe.load_model('tiny', 'cpu')(frames)
         gpu = crepe.load_model('tiny', cuda_device)(frames.to(cuda_device))
     assert float((gpu.cpu() - cpu).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize('capacity', ['tiny', 'full'])
+def test_crepe_packed_chunk_matches_every_frame(cuda_device, capacity):
+    """forward_audio_chunk with each row's real frame counts on the card:
+    the real frames within 1e-5 of the call over every frame (at the
+    'full' widths both run in two pieces), zeros on the others, and the
+    call never synchronizes (torch.cuda.set_sync_debug_mode('error'))."""
+    from chip_smoke import crepe_params
+    from shennong_tpu_torch.models import crepe
+    from shennong_tpu_torch.weights import crepe_from_numpy
+
+    hop, chunk = 160, 256
+    halo = crepe.required_halo(hop)
+    seg_len, left = crepe.segment_geometry(hop, chunk, halo)
+    counts = np.array([256, 201, 3, 0, 256, 140, 256, 256, 97, 256, 0, 256,
+                       256, 256])
+    rng = np.random.RandomState(22)
+    t = np.arange(seg_len) / 16000
+    segments = np.zeros((counts.shape[0], seg_len), np.int16)
+    for row, count in enumerate(counts):
+        end = min(seg_len, left + (count - 1) * hop + 1024) if count else 0
+        segments[row, :end] = np.round(
+            8000 * np.sin(2 * np.pi * (100 + 15 * row) * t[:end])
+            + 300 * rng.randn(end))
+    owners = np.where(counts > 0, counts - 1 + halo, 0).astype(np.int32)
+    model = crepe.load_model('tiny', cuda_device) if capacity == 'tiny' \
+        else crepe_from_numpy(crepe_params('full', 22)).to(cuda_device)
+    args = (model, torch.as_tensor(segments, device=cuda_device),
+            torch.as_tensor(owners, device=cuda_device), hop, chunk, halo)
+
+    with torch.no_grad():
+        sal, stats = crepe.forward_audio_chunk(*args)
+        crepe.forward_audio_chunk(*args, counts=counts)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            packed, packed_stats = crepe.forward_audio_chunk(
+                *args, counts=counts)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    real = torch.arange(chunk)[None, :] < torch.from_numpy(counts)[:, None]
+    sal, stats, packed, packed_stats = (
+        x.cpu() for x in (sal, stats, packed, packed_stats))
+    assert float((packed[real] - sal[real]).abs().max()) < 1e-5
+    assert float((packed_stats[real][:, 1]
+                  - stats[real][:, 1]).abs().max()) < 1e-5
+    assert not packed[~real].any()
 
 
 def test_crepe_processor_matches_cpu(cuda_device):
