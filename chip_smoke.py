@@ -289,23 +289,25 @@ def build_kernels():
     (or None)."""
     import concurrent.futures
 
+    from shennong_tpu_torch import native
     from shennong_tpu_torch.ops import cuda_viterbi, dtw, pass_two, viterbi
 
     start = time.perf_counter()
-    sources = [cuda_viterbi._SOURCE, viterbi._SOURCE, dtw._SOURCE,
-               pass_two._SOURCE]
-    current = len(sources)
+    libraries = [cuda_viterbi._KERNELS, viterbi._KERNELS, dtw._KERNELS,
+                 pass_two._KERNELS]
+    current = len(libraries)
     old = [os.path.join(AB_SOURCES, name)
            for name in ('banded_viterbi.cu', 'dtw.cu')]
     if all(os.path.isfile(path) for path in old):
-        sources += old
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        built = list(pool.map(
-            lambda source: cuda_viterbi.build(source, fresh=True), sources))
-    cuda_viterbi._load()
-    viterbi._load()
-    dtw._load()
-    pass_two._load()
+        libraries += [native.Library([path], {}) for path in old]
+    for library in libraries:
+        # afresh: a library already built gives no compiler log
+        if os.path.isfile(library.path):
+            os.unlink(library.path)
+    with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+        built = list(pool.map(lambda library: library.build(), libraries))
+    for library in libraries[:current]:
+        library.load()
     seconds = time.perf_counter() - start
     say('build', ', '.join(os.path.relpath(path, HERE) for path, _ in built)
         + f' in {seconds:.2f} s (one nvcc each, in parallel)')
@@ -480,7 +482,7 @@ def kernels_vs_plain(resources):
         ((3, 1, 417), [1, 0, 1]),
         ((1, 20000, 417), [20000]),
     ]
-    lib = cuda_viterbi._load()
+    lib = cuda_viterbi._KERNELS.load()
     room = []
     for size in range(1, cuda_viterbi.MAX_CLUSTER + 1):
         count = ctypes.c_int()
@@ -1366,7 +1368,7 @@ def cluster_sweep(phase):
     from shennong_tpu_torch.ops.pitch import PitchOpts, inter_frame_factor
 
     factor = cuda_viterbi._factor32(inter_frame_factor(PitchOpts()))
-    lib = cuda_viterbi._load()
+    lib = cuda_viterbi._KERNELS.load()
     shape = (1, 8400, 417)
     cost = torch.from_numpy(np.random.RandomState(9).rand(*shape).astype(
         np.float32)).cuda()
@@ -1644,9 +1646,8 @@ def host_plane(card, workdir, entries):
         fp.write(pipeline.get_default_config(
             'mfcc', to_yaml=True, with_pitch='kaldi', with_cmvn=True,
             with_delta=True))
-    built = all(os.path.isfile(cuda_viterbi.library_path(source))
-                for source in (cuda_viterbi._SOURCE, viterbi._SOURCE,
-                               dtw._SOURCE))
+    built = all(os.path.isfile(library.path) for library in (
+        cuda_viterbi._KERNELS, viterbi._KERNELS, dtw._KERNELS))
     say(phase, '_build/ was ' + (
         'warm: the kernel libraries of this checkout were there (this '
         'run built them), so the fresh processes load them and build '

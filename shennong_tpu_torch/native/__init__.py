@@ -1,45 +1,162 @@
-"""ctypes bindings to the port's native IO runtime.
+"""The port's compiled libraries (:class:`Library`), and the ctypes
+bindings to its native IO runtime.
 
-The port's own copy of the loader of ``shennong_tpu/native``, with the
-entry points the port calls: fast WAV header scans and a threaded
+Every library is compiled at first use into the package's ``_build/``
+directory, under a name that carries a digest of its sources and
+flags; nothing is built next to the sources. The CUDA libraries
+(``nvcc``) are the hand-written kernels of ``ops/`` (``csrc/*.cu``); a
+failed build raises with nvcc's output. The host libraries (``g++``)
+hold the entry points below: fast WAV header scans and a threaded
 batched PCM16 WAV loader (``shennong_io.cpp``), the Kaldi ark indexer
 and bulk reader (``shennong_io.cpp``), a FLAC decoder
 (``shennong_flac.cpp``), a threaded CSV writer (``shennong_csv.cpp``),
 the float64 banded Viterbi decoders of the CREPE pitch smoothing
-(``shennong_viterbi.cpp``) and the compressed-audio codec through the system libav* libraries
-(``shennong_codec.cpp``, its own library so a machine without
-libavformat still gets the rest).
-
-Each library is compiled with ``g++`` at first use into the package's
-``_build/`` directory, under a name that carries a digest of its
-sources and flags; nothing is built next to the sources. Every entry
-point returns None (or False) when its library cannot be built or
-loaded, and the callers then take their pure-Python path.
+(``shennong_viterbi.cpp``) and the compressed-audio codec through the
+system libav* libraries (``shennong_codec.cpp``, its own library so a
+machine without libavformat still gets the rest). Every entry point
+returns None (or False) when its library cannot be built or loaded,
+and the callers then take their pure-Python path.
 """
 
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import threading
 
 import numpy as np
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_BUILD_DIR = os.path.join(os.path.dirname(_HERE), '_build')
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_BUILD_DIR = os.path.join(_PACKAGE, '_build')
 
 # -ffp-contract=off: no silent FMA fusion (the codecs are held
 # bit-exact against their numpy paths)
-_FLAGS = ['-O3', '-shared', '-fPIC', '-std=c++17', '-pthread',
-          '-ffp-contract=off']
-_IO_SOURCES = ['shennong_io.cpp', 'shennong_flac.cpp', 'shennong_csv.cpp',
-               'shennong_viterbi.cpp']
-_CODEC_SOURCES = ['shennong_codec.cpp']
-_CODEC_LIBS = ['-lavformat', '-lavcodec', '-lavutil', '-lswresample']
+_GXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17', '-pthread',
+              '-ffp-contract=off')
+#: nvcc flags: Hopper (sm_90a) code, and no contraction of a multiply
+#: and an add into an FMA (the kernels round like the reference);
+#: ``-Xptxas -v`` puts each kernel's registers and spills in the log
+NVCC_FLAGS = (
+    '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+    '-fmad=false', '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC')
 
-_lock = threading.Lock()
-_libraries = {}
+
+def _nvcc():
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
+    return os.path.join(home, 'bin', 'nvcc')
+
+
+class Library:
+    """A shared library built from ``sources`` (paths, relative to the
+    package or absolute) at first use, with the entry points of
+    ``signatures`` (symbol -> (restype, argtypes)) bound.
+
+    Sources ending in ``.cu`` build with nvcc into a CUDA library, whose
+    ``errors`` symbol maps a CUDA error code to its string
+    (:meth:`check`); others build with g++, linked with ``libs``.
+    ``hold_gil`` opens the library as a ``ctypes.PyDLL``, which keeps
+    the interpreter lock over each call.
+    """
+
+    def __init__(self, sources, signatures, *, libs=(), errors=None,
+                 hold_gil=False):
+        self.sources = [os.path.join(_PACKAGE, source) for source in sources]
+        self.cuda = self.sources[0].endswith('.cu')
+        self.signatures = dict(signatures)
+        if errors is not None:
+            self.signatures[errors] = (ctypes.c_char_p, [ctypes.c_int])
+        self.errors = errors
+        self.libs = list(libs)
+        self.hold_gil = hold_gil
+        self._lock = threading.Lock()
+        self._handle = None
+        self._opened = False
+
+    @property
+    def path(self):
+        """``_build/lib<name>-<digest>.so``: where :meth:`build` puts the
+        library, ``name`` the first source's, the digest of the flags and
+        the sources."""
+        flags = NVCC_FLAGS if self.cuda else _GXX_FLAGS
+        digest = hashlib.sha1(' '.join([*flags, *self.libs]).encode())
+        for source in self.sources:
+            with open(source, 'rb') as fp:
+                digest.update(fp.read())
+        name = os.path.splitext(os.path.basename(self.sources[0]))[0]
+        return os.path.join(
+            _BUILD_DIR, f'lib{name}-{digest.hexdigest()[:16]}.so')
+
+    def build(self):
+        """Compile the sources into :attr:`path`, once per content.
+
+        Returns ``(path, compiler_log)``; the log is empty when an
+        up-to-date library was already there. Raises RuntimeError with
+        the compiler's output when the build fails.
+        """
+        target = self.path
+        if os.path.isfile(target):
+            return target, ''
+        compiler, flags = ((_nvcc(), NVCC_FLAGS) if self.cuda
+                           else ('g++', _GXX_FLAGS))
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        # build under a private name, then rename: concurrent builds
+        # never load a half-written library
+        handle, partial = tempfile.mkstemp(suffix='.so', dir=_BUILD_DIR)
+        os.close(handle)
+        try:
+            proc = subprocess.run(
+                [compiler, *flags, '-o', partial, *self.sources, *self.libs],
+                capture_output=True, text=True)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f'{os.path.basename(compiler)} failed to build '
+                    f'{", ".join(self.sources)} (exit {proc.returncode}):\n'
+                    + log)
+            os.replace(partial, target)
+        finally:
+            if os.path.exists(partial):
+                os.unlink(partial)
+        return target, log
+
+    def _open(self):
+        lib = (ctypes.PyDLL if self.hold_gil else ctypes.CDLL)(
+            self.build()[0])
+        for symbol, (restype, argtypes) in self.signatures.items():
+            fn = getattr(lib, symbol)
+            fn.restype, fn.argtypes = restype, argtypes
+        return lib
+
+    def load(self):
+        """The ctypes handle, built and bound at first use. A CUDA
+        library raises when it cannot be built or loaded (and tries
+        again at the next call); a host library is then None for the
+        life of the process."""
+        with self._lock:
+            if not self._opened:
+                if self.cuda:
+                    self._handle = self._open()
+                else:
+                    try:
+                        self._handle = self._open()
+                    except (OSError, AttributeError, RuntimeError):
+                        self._handle = None
+                self._opened = True
+        return self._handle
+
+    def check(self, code, kernel):
+        """Raise RuntimeError naming ``kernel``, the CUDA error ``code``
+        and its string from the library, unless ``code`` is 0."""
+        if code != 0:
+            text = getattr(self.load(), self.errors)(code).decode()
+            raise RuntimeError(
+                f'{kernel} kernel launch failed: CUDA error {code} ({text})')
+
 
 _P = ctypes.POINTER
 _I32, _I64, _F64 = ctypes.c_int32, ctypes.c_int64, ctypes.c_double
@@ -79,63 +196,22 @@ _CODEC_SIGNATURES = {
         ctypes.c_char_p, _P(ctypes.c_int16), _I64, _I32, _I32]),
 }
 
-
-def _build(name, sources, libs):
-    """Compile ``sources`` into ``_build/lib<name>-<digest>.so`` (once
-    per content); returns the library path. Raises CalledProcessError
-    when g++ fails."""
-    paths = [os.path.join(_HERE, source) for source in sources]
-    digest = hashlib.sha1(' '.join(_FLAGS + libs).encode())
-    for path in paths:
-        with open(path, 'rb') as fp:
-            digest.update(fp.read())
-    target = os.path.join(
-        _BUILD_DIR, f'lib{name}-{digest.hexdigest()[:16]}.so')
-    if os.path.isfile(target):
-        return target
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    # build under a private name, then rename: concurrent builds never
-    # load a half-written library
-    handle, partial = tempfile.mkstemp(suffix='.so', dir=_BUILD_DIR)
-    os.close(handle)
-    try:
-        subprocess.run(
-            ['g++', *_FLAGS, '-o', partial, *paths, *libs],
-            check=True, capture_output=True)
-        os.replace(partial, target)
-    finally:
-        if os.path.exists(partial):
-            os.unlink(partial)
-    return target
-
-
-def _load(name, sources, libs, signatures):
-    """The ctypes handle of library ``name``, built at first use, or
-    None when it cannot be built or loaded."""
-    with _lock:
-        if name not in _libraries:
-            try:
-                lib = ctypes.CDLL(_build(name, sources, libs))
-                for symbol, (restype, argtypes) in signatures.items():
-                    fn = getattr(lib, symbol)
-                    fn.restype, fn.argtypes = restype, argtypes
-            except (OSError, AttributeError,
-                    subprocess.CalledProcessError):
-                lib = None
-            _libraries[name] = lib
-    return _libraries[name]
+_IO = Library(['native/shennong_io.cpp', 'native/shennong_flac.cpp',
+               'native/shennong_csv.cpp', 'native/shennong_viterbi.cpp'],
+              _IO_SIGNATURES)
+_CODEC = Library(['native/shennong_codec.cpp'], _CODEC_SIGNATURES,
+                 libs=['-lavformat', '-lavcodec', '-lavutil', '-lswresample'])
 
 
 def load_library():
     """The IO library (WAV, ark, FLAC, CSV), or None."""
-    return _load('shennong_io', _IO_SOURCES, [], _IO_SIGNATURES)
+    return _IO.load()
 
 
 def load_codec_library():
     """The libav*-backed codec library, or None on machines without
     the libav* system libraries."""
-    return _load('shennong_codec', _CODEC_SOURCES, _CODEC_LIBS,
-                 _CODEC_SIGNATURES)
+    return _CODEC.load()
 
 
 def available():

@@ -3,9 +3,9 @@ plain PyTorch versions.
 
 Counterpart of :mod:`shennong_tpu.ops.pallas_viterbi`. The forward
 min-plus recursion and the reverse argmin backtrace run as two CUDA
-kernels (``csrc/viterbi.cu``, built for ``sm_90a`` with ``nvcc`` at
-first use into ``_build/`` and bound through a plain C interface with
-ctypes). The forward runs each batch row on a cluster of blocks
+kernels (``csrc/viterbi.cu``, a
+:class:`~shennong_tpu_torch.native.Library` built for ``sm_90a`` at
+first use). The forward runs each batch row on a cluster of blocks
 (:func:`cluster_size`), the backtrace walks each row with a ring of
 prefetched history rows; both read the penalty from a mirrored table
 that holds :func:`transition_penalty`'s values. Each kernel has a
@@ -21,111 +21,28 @@ version. Every kernel launch adds one to
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 
 import numpy as np
 import torch
 
+from shennong_tpu_torch import native
 from shennong_tpu_torch.parallel.profiler import counters
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SOURCE = os.path.join(os.path.dirname(_HERE), 'csrc', 'viterbi.cu')
-_BUILD_DIR = os.path.join(os.path.dirname(_HERE), '_build')
+_P, _INT = ctypes.c_void_p, ctypes.c_int
 
-#: nvcc flags: Hopper (sm_90a) code, and no contraction of a multiply
-#: and an add into an FMA (the kernels round like the reference)
-NVCC_FLAGS = (
-    '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-    '-fmad=false', '-Xptxas', '-v', '-shared', '-Xcompiler', '-fPIC')
-
-_lock = threading.Lock()
-_library = None
-
-
-def _nvcc():
-    found = shutil.which('nvcc')
-    if found:
-        return found
-    home = os.environ.get('CUDA_HOME') or '/usr/local/cuda'
-    return os.path.join(home, 'bin', 'nvcc')
-
-
-def library_path(source=_SOURCE):
-    """``_build/lib<name>-<digest>.so``: where :func:`build` puts the
-    library of a CUDA source of ``csrc/`` (the digest covers the source
-    and the nvcc flags)."""
-    with open(source, 'rb') as fp:
-        digest = hashlib.sha1(
-            fp.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    name = os.path.splitext(os.path.basename(source))[0]
-    return os.path.join(_BUILD_DIR, f'lib{name}-{digest}.so')
-
-
-def build(source=_SOURCE, fresh=False):
-    """Compile a CUDA source of ``csrc/`` (``csrc/viterbi.cu`` by
-    default) into ``_build/lib<name>-<digest>.so``, once per source
-    content, or again when ``fresh``.
-
-    Returns ``(library_path, compiler_log)``; the log is empty when an
-    up-to-date library was already there. Raises RuntimeError with
-    nvcc's output when the build fails.
-    """
-    target = library_path(source)
-    if os.path.isfile(target) and not fresh:
-        return target, ''
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    # build under a private name, then rename: concurrent builds
-    # never load a half-written library
-    handle, partial = tempfile.mkstemp(suffix='.so', dir=_BUILD_DIR)
-    os.close(handle)
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, '-o', partial, source],
-        capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(partial)
-        raise RuntimeError(
-            f'nvcc failed to build {source} (exit {proc.returncode}):\n'
-            + log)
-    os.replace(partial, target)
-    return target, log
-
-
-def _load():
-    """The ctypes handle of the kernel library, built at first use."""
-    global _library
-    with _lock:
-        if _library is None:
-            path, _ = build()
-            lib = ctypes.CDLL(path)
-            pointers = [ctypes.c_void_p] * 3
-            sizes = [ctypes.c_int] * 3
-            lib.shennong_viterbi_forward.restype = ctypes.c_int
-            lib.shennong_viterbi_forward.argtypes = [
-                *pointers, *sizes, ctypes.c_float, ctypes.c_int,
-                ctypes.c_void_p]
-            lib.shennong_viterbi_backtrace.restype = ctypes.c_int
-            lib.shennong_viterbi_backtrace.argtypes = [
-                *pointers, *sizes, ctypes.c_float, ctypes.c_void_p]
-            lib.shennong_viterbi_forward_plan.restype = None
-            lib.shennong_viterbi_forward_plan.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_size_t)]
-            lib.shennong_viterbi_forward_max_clusters.restype = ctypes.c_int
-            lib.shennong_viterbi_forward_max_clusters.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-            lib.shennong_viterbi_backtrace_smem.restype = ctypes.c_size_t
-            lib.shennong_viterbi_backtrace_smem.argtypes = [ctypes.c_int]
-            lib.shennong_cuda_error_string.restype = ctypes.c_char_p
-            lib.shennong_cuda_error_string.argtypes = [ctypes.c_int]
-            _library = lib
-    return _library
+#: the kernel library, its entry points and their (restype, argtypes)
+_KERNELS = native.Library(['csrc/viterbi.cu'], {
+    'shennong_viterbi_forward': (_INT, [
+        _P, _P, _P, _INT, _INT, _INT, ctypes.c_float, _INT, _P]),
+    'shennong_viterbi_backtrace': (_INT, [
+        _P, _P, _P, _INT, _INT, _INT, ctypes.c_float, _P]),
+    'shennong_viterbi_forward_plan': (None, [
+        _INT, _INT, ctypes.POINTER(_INT), ctypes.POINTER(_INT),
+        ctypes.POINTER(ctypes.c_size_t)]),
+    'shennong_viterbi_forward_max_clusters': (_INT, [
+        _INT, _INT, ctypes.POINTER(_INT)]),
+    'shennong_viterbi_backtrace_smem': (ctypes.c_size_t, [_INT]),
+}, errors='shennong_cuda_error_string')
 
 
 def _factor32(inter_frame_factor):
@@ -144,13 +61,6 @@ def _check(name, tensor, dtype, ndim, device):
     if tensor.device != device:
         raise ValueError(
             f'{name} is on {tensor.device}, expected {device}')
-
-
-def _raise_on_error(lib, code, what):
-    if code != 0:
-        raise RuntimeError(
-            f'{what} kernel launch failed: CUDA error {code} '
-            f'({lib.shennong_cuda_error_string(code).decode()})')
 
 
 # ------------------------------------------------------------- penalty
@@ -218,14 +128,14 @@ def forward_plan(bsz, nlags, device):
     device = torch.device(device)
     key = (device.index, bsz, nlags)
     if key not in _plans:
-        lib = _load()
+        lib = _KERNELS.load()
 
         def max_clusters(size):
             count = ctypes.c_int()
             with torch.cuda.device(device):
                 code = lib.shennong_viterbi_forward_max_clusters(
                     nlags, size, ctypes.byref(count))
-            _raise_on_error(lib, code, 'viterbi_forward occupancy')
+            _KERNELS.check(code, 'viterbi_forward occupancy')
             return count.value
 
         sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -270,14 +180,14 @@ def viterbi_forward(local_cost, nframes, inter_frame_factor):
     plan = forward_plan(bsz, nlags, device)
     if plan['smem'] > 227 * 1024:
         raise ValueError(f'{nlags} lags exceed the shared memory of a block')
-    lib = _load()
+    lib = _KERNELS.load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.shennong_viterbi_forward(
             local_cost.data_ptr(), nframes.data_ptr(), hist.data_ptr(),
             bsz, maxframes, nlags, _factor32(inter_frame_factor),
             plan['clusters'], stream)
-    _raise_on_error(lib, code, 'viterbi_forward')
+    _KERNELS.check(code, 'viterbi_forward')
     counters.add('launches.viterbi_forward')
     return hist
 
@@ -327,7 +237,7 @@ def viterbi_backtrace(hist, nframes, inter_frame_factor):
     best = torch.empty((maxframes, bsz), dtype=torch.int32, device=device)
     if bsz == 0 or maxframes == 0:
         return best
-    lib = _load()
+    lib = _KERNELS.load()
     if lib.shennong_viterbi_backtrace_smem(nlags) > 227 * 1024:
         raise ValueError(f'{nlags} lags exceed the shared memory of a block')
     with torch.cuda.device(device):
@@ -335,7 +245,7 @@ def viterbi_backtrace(hist, nframes, inter_frame_factor):
         code = lib.shennong_viterbi_backtrace(
             hist.data_ptr(), nframes.data_ptr(), best.data_ptr(),
             bsz, maxframes, nlags, _factor32(inter_frame_factor), stream)
-    _raise_on_error(lib, code, 'viterbi_backtrace')
+    _KERNELS.check(code, 'viterbi_backtrace')
     counters.add('launches.viterbi_backtrace')
     return best
 

@@ -13,10 +13,10 @@ cost the shorter wins (lexicographic ``(cost, length)`` minimum).
 :func:`dtw_divergences` dispatches by the device of ``costs``: a CPU
 tensor takes :func:`dtw_divergences_plain`, the JAX package's row
 formulation written with PyTorch tensors; a CUDA tensor launches
-``csrc/dtw.cu`` (built with ``nvcc`` at first use into ``_build/``,
-bound through a plain C interface with ctypes) or raises. Every kernel
-launch adds one to ``counters['launches.dtw']``
-(:mod:`shennong_tpu_torch.parallel.profiler`). It checks the frame
+``csrc/dtw.cu`` (a :class:`~shennong_tpu_torch.native.Library`, built
+at first use) or raises. Every kernel launch adds one to
+``counters['launches.dtw']`` (:mod:`shennong_tpu_torch.parallel.profiler`).
+It checks the frame
 counts, which makes the host wait for the card when they lie there;
 :func:`divergences_unchecked` is the same dispatch for counts a caller
 has already checked on the host (``eval.abx.pairwise_distances``),
@@ -30,20 +30,21 @@ equal.
 
 import ctypes
 import math
-import os
-import threading
 
 import torch
 import torch.nn.functional as F
 
+from shennong_tpu_torch import native
 from shennong_tpu_torch.parallel.profiler import counters
 
-_SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    'csrc', 'dtw.cu')
+_P, _INT = ctypes.c_void_p, ctypes.c_int
 
-_lock = threading.Lock()
-_library = None
+#: the kernel library, its entry points and their (restype, argtypes)
+_KERNELS = native.Library(['csrc/dtw.cu'], {
+    'shennong_dtw': (_INT, [
+        _P, _P, _P, _INT, _INT, _INT, _INT, _P, _P, _P, _P]),
+    'shennong_dtw_rows_per_lane': (_INT, [_INT, _INT, _INT]),
+}, errors='shennong_dtw_error_string')
 
 
 def _lexmin(cost_a, len_a, cost_b, len_b):
@@ -130,33 +131,12 @@ def dtw_divergences_plain(costs, nx, ny):
     return end / end_len
 
 
-def _load():
-    """The ctypes handle of the kernel library, built at first use."""
-    global _library
-    with _lock:
-        if _library is None:
-            from shennong_tpu_torch.ops.cuda_viterbi import build
-            path, _ = build(_SOURCE)
-            lib = ctypes.CDLL(path)
-            pointer, size = ctypes.c_void_p, ctypes.c_int
-            lib.shennong_dtw.restype = ctypes.c_int
-            lib.shennong_dtw.argtypes = [
-                pointer, pointer, pointer, size, size, size, size, pointer,
-                pointer, pointer, pointer]
-            lib.shennong_dtw_rows_per_lane.restype = ctypes.c_int
-            lib.shennong_dtw_rows_per_lane.argtypes = [size, size, size]
-            lib.shennong_dtw_error_string.restype = ctypes.c_char_p
-            lib.shennong_dtw_error_string.argtypes = [ctypes.c_int]
-            _library = lib
-    return _library
-
-
 def rows_per_lane(rows, cols, requested=0):
     """The rows of a pair a lane of the kernel holds for [rows, cols]
     pairs (``requested``, or the kernel's default for 0), or 0 when
     such pairs take the strip kernel (more than 128 rows on the smaller
     side, or a pair too large to stage in shared memory)."""
-    return _load().shennong_dtw_rows_per_lane(rows, cols, requested)
+    return _KERNELS.load().shennong_dtw_rows_per_lane(rows, cols, requested)
 
 
 def launch_dtw(costs, nx, ny, div, requested=0):
@@ -164,7 +144,7 @@ def launch_dtw(costs, nx, ny, div, requested=0):
     [B, Ta, Tb] float32, ``nx``, ``ny`` [B] int32 in range, ``div``
     [B] float32), with ``requested`` rows a lane (0: the default).
     Counts nothing: :func:`dtw_divergences` counts its launches."""
-    lib = _load()
+    lib = _KERNELS.load()
     bsz, rows, cols = costs.shape
     device = costs.device
     # the strip kernel passes each strip's last row to the next through
@@ -181,10 +161,7 @@ def launch_dtw(costs, nx, ny, div, requested=0):
             costs.data_ptr(), nx.data_ptr(), ny.data_ptr(), bsz, rows, cols,
             requested, edge_cost.data_ptr() if strips else None,
             edge_len.data_ptr() if strips else None, div.data_ptr(), stream)
-    if code != 0:
-        raise RuntimeError(
-            f'dtw kernel launch failed: CUDA error {code} '
-            f'({lib.shennong_dtw_error_string(code).decode()})')
+    _KERNELS.check(code, 'dtw')
 
 
 def _shape(costs):

@@ -14,34 +14,41 @@ their final rows, the same bits as the per-utterance chain of
 Dispatch goes by the device given to :func:`pack`: the CPU takes
 :func:`pass_two_plain`; a CUDA device gets one upload of the packed
 input from page-locked memory and one launch of ``csrc/pass_two.cu``
-(built with ``nvcc`` at first use into ``_build/``, bound through a
-plain C interface with ctypes), on a stream of pass 2's own, so that
-its synchronising download never waits for the batches pass 1 has in
-flight; it raises on a failed launch. Any other device raises. Every
+(a :class:`~shennong_tpu_torch.native.Library`, built at first use),
+on a stream of pass 2's own, so that its synchronising download never
+waits for the batches pass 1 has in flight; it raises on a failed
+launch. Any other device raises. Every
 launch adds one to ``counters['launches.pass_two']``
 (:mod:`shennong_tpu_torch.parallel.profiler`).
 """
 
 import ctypes
 import dataclasses
-import os
 import threading
 
 import numpy as np
 import torch
 
+from shennong_tpu_torch import native
 from shennong_tpu_torch.ops.postops import delta_scales
 from shennong_tpu_torch.parallel.profiler import counters
 
-_SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    'csrc', 'pass_two.cu')
+_P, _INT = ctypes.c_void_p, ctypes.c_int
+
+#: the kernel library, its entry point and its (restype, argtypes). It
+#: keeps the interpreter lock over a call: a launch returns in
+#: microseconds, and a released lock can take the switch interval (5 ms)
+#: to come back while pass 1 runs Python on another thread
+_KERNELS = native.Library(['csrc/pass_two.cu'], {
+    'shennong_pass_two': (_INT, [
+        _P, _INT, _P, _INT, _P, _P, _INT, _INT, _P, _P, _P, _INT, _INT, _INT,
+        _INT, _INT, _P, _P, _P]),
+}, errors='shennong_pass_two_error_string', hold_gil=True)
 
 #: frames a tile (a block) of the kernel owns, at most
 TILE_ROWS = 64
 
 _lock = threading.Lock()
-_library = None
 _streams = {}
 
 
@@ -240,35 +247,11 @@ def _stream(device):
         return _streams[index]
 
 
-def _load():
-    """The ctypes handle of the kernel library, built at first use."""
-    global _library
-    with _lock:
-        if _library is None:
-            from shennong_tpu_torch.ops.cuda_viterbi import build
-            path, _ = build(_SOURCE)
-            # PyDLL keeps the interpreter lock over a call: a launch
-            # returns in microseconds, and a released lock can take the
-            # switch interval (5 ms) to come back while pass 1 runs
-            # Python on another thread
-            lib = ctypes.PyDLL(path)
-            pointer, size = ctypes.c_void_p, ctypes.c_int
-            lib.shennong_pass_two.restype = ctypes.c_int
-            lib.shennong_pass_two.argtypes = [
-                pointer, size, pointer, size, pointer, pointer, size, size,
-                pointer, pointer, pointer, size, size, size, size, size,
-                pointer, pointer, pointer]
-            lib.shennong_pass_two_error_string.restype = ctypes.c_char_p
-            lib.shennong_pass_two_error_string.argtypes = [ctypes.c_int]
-            _library = lib
-    return _library
-
-
 def _launch(packed):
     """One launch of the kernel over ``packed`` on pass 2's stream, its
     output and count downloaded into pageable memory (the host waits
     for that stream alone)."""
-    lib = _load()
+    lib = _KERNELS.load()
     device = packed.device
     nrows, npitch = packed.shape('pitch')
     ndim = packed.shape('feats')[1]
@@ -288,10 +271,7 @@ def _launch(packed):
             packed.pointer('offset'), packed.pointer('coeffs'), ndim, npitch,
             order, packed.window or 0, TILE_ROWS, out.data_ptr(),
             out.data_ptr() + nbytes, stream.cuda_stream)
-        if code != 0:
-            raise RuntimeError(
-                f'pass_two kernel launch failed: CUDA error {code} '
-                f'({lib.shennong_pass_two_error_string(code).decode()})')
+        _KERNELS.check(code, 'pass_two')
         if packed.tiles:
             counters.add('launches.pass_two')
         host = np.empty(nbytes + 8, dtype=np.uint8)

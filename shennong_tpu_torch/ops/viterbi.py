@@ -8,31 +8,36 @@ C++ kernel (``native/shennong_viterbi.cpp``) and fall back to numpy,
 bit-equal either way. :func:`viterbi_banded_obs_batch` decodes a whole
 slice of rows on the device in float32: a CPU tensor takes its plain
 PyTorch version (a Python loop over frames), a CUDA tensor launches the
-hand-written kernel ``csrc/banded_viterbi.cu`` (built with ``nvcc`` at
-first use into ``_build/``, bound through a plain C interface with
-ctypes) or raises. Every kernel launch adds one to
+hand-written kernel ``csrc/banded_viterbi.cu`` (a
+:class:`~shennong_tpu_torch.native.Library`, built at first use) or
+raises. Every kernel launch adds one to
 ``counters['launches.banded_viterbi']``
 (:mod:`shennong_tpu_torch.parallel.profiler`).
 """
 
 import ctypes
-import os
-import threading
 
 import numpy as np
 import torch
 
+from shennong_tpu_torch import native
 from shennong_tpu_torch.parallel.profiler import counters
-
-_SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    'csrc', 'banded_viterbi.cu')
 
 #: the score outside the state range (the JAX package's padding value)
 _PAD = -3e38
 
-_lock = threading.Lock()
-_library = None
+_P, _INT = ctypes.c_void_p, ctypes.c_int
+_OUT_INT, _OUT_SIZE = ctypes.POINTER(_INT), ctypes.POINTER(ctypes.c_size_t)
+
+#: the kernel library, its entry points and their (restype, argtypes)
+_KERNELS = native.Library(['csrc/banded_viterbi.cu'], {
+    'shennong_banded_viterbi': (_INT, [
+        _P, _P, _P, _P, ctypes.c_float, ctypes.c_float, _INT, _INT, _INT,
+        _INT, _INT, _P, _P, _INT, _P]),
+    'shennong_banded_viterbi_plan': (_INT, [
+        _INT, _INT, _INT, _INT, _INT, _OUT_INT, _OUT_INT, _OUT_INT,
+        _OUT_SIZE, _OUT_SIZE]),
+}, errors='shennong_banded_error_string')
 
 
 # ------------------------------------------------------- host, float64
@@ -233,32 +238,6 @@ def viterbi_banded_obs_batch_plain(log_start, band, uniform_weight,
     return paths
 
 
-def _load():
-    """The ctypes handle of the kernel library, built at first use."""
-    global _library
-    with _lock:
-        if _library is None:
-            from shennong_tpu_torch.ops.cuda_viterbi import build
-            path, _ = build(_SOURCE)
-            lib = ctypes.CDLL(path)
-            pointer, size = ctypes.c_void_p, ctypes.c_int
-            lib.shennong_banded_viterbi.restype = ctypes.c_int
-            lib.shennong_banded_viterbi.argtypes = [
-                pointer, pointer, pointer, pointer, ctypes.c_float,
-                ctypes.c_float, size, size, size, size, size, pointer,
-                pointer, size, pointer]
-            lib.shennong_banded_viterbi_plan.restype = ctypes.c_int
-            lib.shennong_banded_viterbi_plan.argtypes = [
-                size, size, size, size, size, ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_size_t),
-                ctypes.POINTER(ctypes.c_size_t)]
-            lib.shennong_banded_error_string.restype = ctypes.c_char_p
-            lib.shennong_banded_error_string.argtypes = [ctypes.c_int]
-            _library = lib
-    return _library
-
-
 def banded_plan(bsz, maxframes, nstates, width, states_per_thread=0):
     """The kernel's launch for ``bsz`` rows of ``maxframes`` frames,
     ``nstates`` states and a band of ``width``, with
@@ -268,7 +247,7 @@ def banded_plan(bsz, maxframes, nstates, width, states_per_thread=0):
     and ``spill`` (bytes of device scratch for the tiles a long row
     moves out of shared memory). Raises ValueError for a shape the
     kernel does not take."""
-    lib = _load()
+    lib = _KERNELS.load()
     states, threads, tile = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     smem, spill = ctypes.c_size_t(), ctypes.c_size_t()
     code = lib.shennong_banded_viterbi_plan(
@@ -291,7 +270,7 @@ def launch_banded(log_start, band, uniform, gain, observations, nframes,
     ``forward_only`` stops before the argmax and the backtrace (for a
     timing split). Counts nothing: :func:`viterbi_banded_obs_batch`
     counts its launches."""
-    lib = _load()
+    lib = _KERNELS.load()
     bsz, maxframes = observations.shape
     nstates, width = band.shape
     plan = banded_plan(bsz, maxframes, nstates, width, states_per_thread)
@@ -305,10 +284,7 @@ def launch_banded(log_start, band, uniform, gain, observations, nframes,
             maxframes, nstates, width, states_per_thread,
             spill.data_ptr() if plan['spill'] else None, paths.data_ptr(),
             int(forward_only), stream)
-    if code != 0:
-        raise RuntimeError(
-            f'banded_viterbi kernel launch failed: CUDA error {code} '
-            f'({lib.shennong_banded_error_string(code).decode()})')
+    _KERNELS.check(code, 'banded_viterbi')
 
 
 def viterbi_banded_obs_batch(log_start, band, uniform_weight, self_weight,

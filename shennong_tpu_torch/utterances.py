@@ -191,111 +191,6 @@ class Utterances:
             utterances = [line.split(' ') for line in lines if line]
         return cls(utterances)
 
-    def format(self):
-        """Numeric code (1-4) of the fields this utterance carries"""
-        return self._format
-
-    @property
-    def name(self):
-        """The unique <utterance-id> string"""
-        return self._name
-
-    @property
-    def audio_file(self):
-        """Path of the audio file holding this utterance"""
-        return self._audio
-
-    @property
-    def speaker(self):
-        """The <speaker-id> when present, else None"""
-        return self._speaker
-
-    @property
-    def tstart(self):
-        """Segment onset within the file (seconds), None for whole
-        files"""
-        return self._tstart
-
-    @property
-    def tstop(self):
-        """Segment offset within the file (seconds), None for whole
-        files"""
-        return self._tstop
-
-    @property
-    def duration(self):
-        """Length of the utterance's audio, in seconds"""
-        return self._duration
-
-    def load_audio(self):
-        """Load (and optionally segment) the utterance's audio data."""
-        data = Audio.load(self._audio)
-        if self.tstart or self.tstop:
-            data = data.segment([(self.tstart, self.tstop)])[0]
-        return data
-
-
-class Utterances:
-    """An ordered collection of :class:`Utterance` with unique names."""
-
-    def __init__(self, utterances):
-        utterances = self._parse(utterances)
-        if not utterances:
-            raise ValueError('empty input utterances')
-
-        formats = set(utt.format for utt in utterances)
-        if len(formats) != 1:
-            raise ValueError('utterances format is not homogeneous')
-        self._format = formats.pop()
-
-        counter = collections.Counter(u.name for u in utterances)
-        duplicates = [name for name, count in counter.items() if count > 1]
-        if duplicates:
-            raise ValueError(
-                f'duplicates found in utterances: {", ".join(duplicates)}')
-
-        # sorting by audio file exploits the Audio.load cache when
-        # consecutive utterances segment the same file
-        utterances = sorted(utterances, key=lambda u: (u.audio_file, u.name))
-        self._utterances = {u.name: u for u in utterances}
-
-    @staticmethod
-    def _parse(utterances):
-        parsed = []
-        for utt in utterances:
-            if not isinstance(utt, Utterance):
-                try:
-                    utt = Utterance(*utt)
-                except TypeError:
-                    raise ValueError(
-                        f'utterance must be an iterable, not {utt}') from None
-            parsed.append(utt)
-        return parsed
-
-    def __len__(self):
-        return len(self._utterances)
-
-    def __iter__(self):
-        return iter(self._utterances.values())
-
-    def __getitem__(self, name):
-        return self._utterances[name]
-
-    def __eq__(self, other):
-        if not isinstance(other, Utterances):
-            return NotImplemented
-        return self._utterances == other._utterances
-
-    @classmethod
-    def load(cls, filename):
-        """Load utterances from a text index file (one per line)."""
-        if not os.path.isfile(filename):
-            raise ValueError(f'{filename} not found')
-        with open(filename, 'r') as fp:
-            lines = (line.strip() for line in fp)
-            utterances = [line.split(' ') for line in lines if line]
-        return cls(utterances)
-
     def save(self, filename):
         """Write the utterances index to a text file."""
         with open(filename, 'w') as fp:

@@ -1,10 +1,11 @@
 """The port stands alone: it imports nothing of the JAX package.
 
-1. No module of ``shennong_tpu_torch``, not ``chip_smoke.py``, not
-   ``pass_two_turns.py``, no script of ``examples/torch/`` and not the
-   port's site generator ``doc/torch/gen_docs.py`` imports
-   ``shennong_tpu`` or ``jax`` (an AST walk, deferred imports and
-   ``importlib`` calls included).
+1. No module of ``shennong_tpu_torch``, not ``chip_smoke.py``, no
+   script of ``examples/torch/`` and not the port's site generator
+   ``doc/torch/gen_docs.py`` imports ``shennong_tpu`` or ``jax`` (an AST
+   walk, deferred imports and ``importlib`` calls included). One module
+   of ``shennong_tpu_torch``, ``native``, builds and loads its compiled
+   libraries (another AST walk).
 2. With both blocked in ``sys.modules``, a child process imports the
    port, runs a small MFCC + Kaldi pitch + CMVN + delta
    ``extract_features(device='cpu')``, imports the UBM/VTLN trainers
@@ -25,6 +26,7 @@ import ast
 import copy
 import glob
 import os
+import shutil
 import subprocess
 import sys
 
@@ -35,6 +37,7 @@ import scipy.io.wavfile
 from shennong_tpu.features import Features as JFeatures
 from shennong_tpu.features_collection import (
     FeaturesCollection as JFeaturesCollection)
+from shennong_tpu_torch import native
 from shennong_tpu_torch.features import Features
 from shennong_tpu_torch.features_collection import FeaturesCollection
 from shennong_tpu_torch.utils import dict_equal
@@ -71,7 +74,7 @@ def test_no_import_of_the_jax_package():
     paths = sorted(glob.glob(
         os.path.join(REPO, 'shennong_tpu_torch', '**', '*.py'),
         recursive=True)) + [os.path.join(REPO, name) for name in (
-            'chip_smoke.py', 'pass_two_turns.py',
+            'chip_smoke.py',
             os.path.join('doc', 'torch', 'gen_docs.py'))] + sorted(glob.glob(
                 os.path.join(REPO, 'examples', 'torch', '*.py')))
     assert len(paths) > 45
@@ -80,6 +83,51 @@ def test_no_import_of_the_jax_package():
         for path in paths for line, module in _imports(path)
         if _blocked(module)]
     assert not offending, '\n'.join(offending)
+
+
+#: the names that open a shared library through ctypes or build one
+LOADERS = {'CDLL', 'PyDLL', 'cdll', 'pydll', 'LoadLibrary', 'cpp_extension',
+           'load_inline'}
+#: the compilers, as the literal a command line would name them by
+COMPILERS = {'g++', 'gcc', 'c++', 'clang', 'clang++', 'nvcc'}
+
+
+def _builds_or_loads(path):
+    """Whether ``path`` names a ctypes loader or a compiler."""
+    with open(path) as stream:
+        tree = ast.parse(stream.read(), path)
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Attribute) and node.attr in LOADERS
+                or isinstance(node, ast.Name) and node.id in LOADERS
+                or isinstance(node, ast.alias) and node.name in LOADERS
+                or isinstance(node, ast.Constant)
+                and node.value in COMPILERS):
+            return True
+    return False
+
+
+def test_one_module_builds_and_loads_compiled_code():
+    paths = sorted(glob.glob(
+        os.path.join(REPO, 'shennong_tpu_torch', '**', '*.py'),
+        recursive=True))
+    found = [os.path.relpath(path, REPO) for path in paths
+             if _builds_or_loads(path)]
+    assert found == [os.path.join('shennong_tpu_torch', 'native',
+                                  '__init__.py')], found
+
+
+def test_a_failed_build_is_none_on_the_host_and_raises_for_cuda(tmp_path):
+    if shutil.which('g++') is None:
+        pytest.skip('no g++ on this machine')
+    (tmp_path / 'broken.cpp').write_text('not C++\n')
+    (tmp_path / 'broken.cu').write_text('not CUDA\n')
+    host = native.Library([str(tmp_path / 'broken.cpp')], {})
+    with pytest.raises(RuntimeError, match=r'g\+\+ failed to build'):
+        host.build()
+    assert host.load() is None
+    assert not os.path.exists(host.path)
+    with pytest.raises((RuntimeError, OSError)):
+        native.Library([str(tmp_path / 'broken.cu')], {}).load()
 
 
 def test_runs_with_the_jax_package_blocked(tmp_path):
