@@ -76,6 +76,12 @@ bit for bit), and drives the port's paths over a generated corpus of
   chunked path;
 - the CREPE CNN at the 'full' widths with seeded weights: TFLOP/s and
   the card against the CPU;
+- the CREPE conv kernel (``crepe conv``): each block at the 'full'
+  widths on a piece of 2,048 frames against the plain chain on the card
+  and both against float64, its time beside its bound at 67 TFLOP/s,
+  the plain chain's and cuDNN's convolution alone, the whole network,
+  and from the library's SASS the FFMA share of each instantiation's
+  inner loop and no tensor-core instruction;
 - bottleneck features (BASELINE config 5) with seeded weights at
   BabelMulti's widths: ``process_all`` over the corpus (profiled:
   host front end, device forward), ``extract_features`` with CMVN on
@@ -100,8 +106,8 @@ bit for bit), and drives the port's paths over a generated corpus of
 ``python3 chip_smoke.py --spectrogram-pass ROOT DIRECTORY`` runs the
 spectrogram pass alone with the package of the checkout at ROOT (two
 commits timed in turns in one call); ``python3 chip_smoke.py
---pass-two`` builds the kernels and runs the pass-2 kernel's phase
-alone.
+--pass-two`` and ``--crepe-conv`` build the kernels and run the pass-2
+kernel's phase or the CREPE conv kernel's phase alone.
 
 The three Kaldi-pitch slices, the long-audio run, each process of the
 multi-process run and the examples with Kaldi pitch must go through both
@@ -131,6 +137,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_TOL = 1e-3        # the contract of tests/test_real_audio.py
@@ -244,8 +251,9 @@ def kernel_resources(log):
     'banded_viterbi<3,11>' (states a thread, halfwidth held in
     registers or 0), 'dtw_staged<1,1>' (rows a lane, lane 0 reading the
     row above from an idle lane), 'dtw_strip', and the previous
-    designs' 'banded_viterbi' and 'dtw', and 'pass_two<f,f>' (the
-    features' and the output's types)."""
+    designs' 'banded_viterbi' and 'dtw', 'pass_two<f,f>' (the
+    features' and the output's types), and 'crepe_conv<4>' (the
+    stride)."""
     resources = {}
     current, spills = None, (0, 0)
     for line in log.splitlines():
@@ -254,6 +262,7 @@ def kernel_resources(log):
         banded = re.search(r'banded_viterbi_kernelILi(\d+)ELi(\d+)E', line)
         staged = re.search(r'dtw_kernel_stagedILi(\d+)ELb([01])E', line)
         packed = re.search(r'pass_two_kernelI([fd])([fd])E', line)
+        conv = re.search(r'crepe_conv_kernelILi(\d+)E', line)
         if entry:
             current = f'{entry.group(1)}<{entry.group(2)}>'
         elif banded:
@@ -264,6 +273,8 @@ def kernel_resources(log):
             current = f'dtw_staged<{staged.group(1)},{staged.group(2)}>'
         elif packed:
             current = 'pass_two<{},{}>'.format(*packed.groups())
+        elif conv:
+            current = f'crepe_conv<{conv.group(1)}>'
         elif 'dtw_kernel_strip' in line:
             current = 'dtw_strip'
         elif 'dtw_kernel' in line:
@@ -280,8 +291,8 @@ def kernel_resources(log):
 
 
 def build_kernels():
-    """Build csrc/viterbi.cu, csrc/banded_viterbi.cu, csrc/dtw.cu and
-    csrc/pass_two.cu afresh, and the previous sources under AB_SOURCES
+    """Build csrc/viterbi.cu, csrc/banded_viterbi.cu, csrc/dtw.cu,
+    csrc/pass_two.cu and csrc/crepe_conv.cu afresh, and the previous sources under AB_SOURCES
     where present, one nvcc for each source, started together; returns
     ptxas's (registers, spill stores, spill loads) by kernel
     instantiation of this checkout (:func:`kernel_resources`) and, under
@@ -290,11 +301,12 @@ def build_kernels():
     import concurrent.futures
 
     from shennong_tpu_torch import native
-    from shennong_tpu_torch.ops import cuda_viterbi, dtw, pass_two, viterbi
+    from shennong_tpu_torch.ops import (
+        crepe_conv, cuda_viterbi, dtw, pass_two, viterbi)
 
     start = time.perf_counter()
     libraries = [cuda_viterbi._KERNELS, viterbi._KERNELS, dtw._KERNELS,
-                 pass_two._KERNELS]
+                 pass_two._KERNELS, crepe_conv._KERNELS]
     current = len(libraries)
     old = [os.path.join(AB_SOURCES, name)
            for name in ('banded_viterbi.cu', 'dtw.cu')]
@@ -315,7 +327,7 @@ def build_kernels():
     for _, log in built[:current]:
         resources.update(kernel_resources(log))
     for name in ('banded_viterbi<3,11>', 'dtw_staged<1,1>', 'dtw_strip',
-                 'pass_two<f,f>'):
+                 'pass_two<f,f>', 'crepe_conv<4>', 'crepe_conv<1>'):
         check(name in resources, f'no ptxas resources for {name}')
     resources['previous'] = None
     if len(built) > current:
@@ -2602,12 +2614,14 @@ def crepe_slice(card, workdir, entries):
     """The CREPE slice over the corpus: a cold run, RUNS timed warm runs
     (peak memory), a profiled run (the CNN's device ms, the host decode
     and pass 2); the device decode through ``extract_features`` with its
-    banded Viterbi launches counted, against the host decode; the card
+    banded Viterbi's and conv kernel's launches and the conv kernel's
+    frames counted, against the host decode; the card
     against the CPU on 8 utterances; and the 12-minute WAV through the
-    chunked path. Returns the banded Viterbi's launches of the device
-    decode run."""
+    chunked path. Returns the banded Viterbi's and the conv kernel's
+    launches of the device decode run."""
     from shennong_tpu_torch import Utterances
     from shennong_tpu_torch import pipeline
+    from shennong_tpu_torch.parallel.profiler import counters
     from shennong_tpu_torch.processor.pitch_crepe import CrepePitchProcessor
 
     phase = 'crepe slice'
@@ -2655,9 +2669,17 @@ def crepe_slice(card, workdir, entries):
         copy.deepcopy(device_config), utterances, device='cuda')
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    launches = launch_counts('banded_viterbi')
+    launches = launch_counts('banded_viterbi', 'crepe_conv')
     check(launches['banded_viterbi'] > 0,
           'the device decode never launched banded_viterbi')
+    check(launches['crepe_conv'] > 0 and launches['crepe_conv'] % 6 == 0,
+          f'the device decode launched crepe_conv {launches["crepe_conv"]} '
+          'times, not six a CNN piece')
+    frames = counters.snapshot()
+    check(frames.get('crepe_conv_kernel_frames')
+          == frames.get('crepe_cnn_frames'),
+          f'{frames.get("crepe_conv_kernel_frames")} frames ran in the conv '
+          f'kernel of the {frames.get("crepe_cnn_frames")} the CNN ran')
     check(len(out) == NUM_UTTERANCES and all(
         np.isfinite(out[utt.name].data).all() for utt in utterances),
         'the device decode gave missing or non-finite features')
@@ -2898,6 +2920,217 @@ def crepe_full(card, entries):
         f'67 TFLOP/s float32 peak {rate / 67:.3f}; peak device memory '
         f'{peak:.2f} GiB on {card}; cuda vs cpu on 4 frames max-abs '
         f'{err:.3g} < 1e-4')
+
+
+#: SASS opcodes of the tensor cores (none may appear in the conv kernel)
+TENSOR_CORE_OPS = ('HMMA', 'HGMMA', 'IMMA', 'IGMMA', 'BMMA', 'BGMMA',
+                   'DMMA', 'QGMMA')
+
+
+def sass_functions(library):
+    """{function name: [(address, opcode)]} from ``cuobjdump -sass`` of a
+    library, with each branch's target address as a third field (None
+    for other instructions)."""
+    tool = shutil.which('cuobjdump') or '/usr/local/cuda/bin/cuobjdump'
+    text = subprocess.run([tool, '-sass', library], capture_output=True,
+                          text=True, check=True).stdout
+    functions, code, labels, pending = {}, None, {}, []
+    for line in text.splitlines():
+        found = re.search(r'Function : (\S+)', line)
+        if found:
+            code, labels, pending = [], {}, []
+            functions[found.group(1)] = (code, labels)
+            continue
+        label = re.match(r'\s*(\.L_x_\d+):', line)
+        if code is None:
+            continue
+        if label:
+            pending.append(label.group(1))
+            continue
+        instr = re.match(r'\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;', line)
+        if instr:
+            address = int(instr.group(1), 16)
+            labels.update((name, address) for name in pending)
+            pending = []
+            words = instr.group(2).split()
+            if words and words[0].startswith('@'):
+                words = words[1:]
+            target = re.search(r'BRA\s+`?\(?(\.L_x_\d+|0x[0-9a-f]+)',
+                               instr.group(2))
+            code.append((address, words[0] if words else '',
+                         target.group(1) if target else None))
+    result = {}
+    for name, (code, labels) in functions.items():
+        result[name] = [
+            (address, opcode, None if target is None else (
+                labels.get(target) if target.startswith('.L')
+                else int(target, 16)))
+            for address, opcode, target in code]
+    return result
+
+
+def inner_loop_ffma_share(code):
+    """(FFMA share, instructions) of the innermost loop (a backward
+    branch holding no other) with the most FFMAs in a function's SASS."""
+    loops = [(target, address) for address, _, target in code
+             if target is not None and target <= address]
+    inner = [(lo, hi) for lo, hi in loops if not any(
+        (a, b) != (lo, hi) and lo <= a and b <= hi for a, b in loops)]
+    best = (0.0, 0, 0)
+    for lo, hi in inner:
+        body = [op for address, op, _ in code if lo <= address <= hi]
+        ffma = sum(op.split('.')[0] == 'FFMA' for op in body)
+        if ffma > best[2]:
+            best = (ffma / len(body), len(body), ffma)
+    return best[:2]
+
+
+def crepe_conv_sass(phase):
+    """The FFMA share of each conv kernel instantiation's inner loop, and
+    a check that the library holds no tensor-core instruction."""
+    from shennong_tpu_torch.ops import crepe_conv
+
+    functions = sass_functions(crepe_conv._KERNELS.path)
+    shares = {}
+    for name, code in functions.items():
+        tensor = [op for _, op, _ in code
+                  if op.split('.')[0] in TENSOR_CORE_OPS]
+        check(not tensor, f'{name} holds tensor-core instructions {tensor}')
+        found = re.search(r'crepe_conv_kernelILi(\d+)E', name)
+        if found:
+            share, count = inner_loop_ffma_share(code)
+            key = f'crepe_conv<{found.group(1)}>'
+            shares[key] = share
+            say(phase, f'SASS {key}: {len(code)} instructions, inner loop '
+                f'{count} instructions, FFMA share {share:.4f}; no '
+                f'tensor-core instruction ({", ".join(TENSOR_CORE_OPS)})')
+    check(len(shares) == 2, f'SASS of {sorted(shares)}, not 2 kernels')
+    return shares
+
+
+def nonzero_taps(size, stride, width):
+    """(taps that read a sample, all taps) of a TensorFlow 'SAME'
+    convolution over ``size`` samples, summed over its outputs: the
+    rest multiply the padding's zeros."""
+    from shennong_tpu_torch.ops import crepe_conv
+
+    left = crepe_conv.same_padding(size, stride, width)[0]
+    times = -(-size // stride)
+    position = (np.arange(times)[:, None] * stride
+                + np.arange(width)[None, :] - left)
+    return int(((position >= 0) & (position < size)).sum()), times * width
+
+
+def crepe_conv_phase(card, resources):
+    """Each conv block of CREPE 'full' (seeded weights,
+    :func:`crepe_params`) on the main path's piece of 2,048 frames
+    through the hand-written kernel: against the plain chain on the card
+    and both against the chain in float64 (largest gaps over the float64
+    values' largest magnitude), timed with CUDA events beside its bound
+    at 67 TFLOP/s over the taps that read a sample (the share of taps on
+    'SAME' padding printed beside it), the plain chain's time and
+    cuDNN's convolution alone (``library_ms``: called here, never by the
+    port); the whole network through the kernels against the plain
+    chain (time, largest salience gap, argmax bins); the FFMA share of
+    each instantiation's inner loop from the library's SASS. Returns the
+    largest relative gap to the plain chain and (ms, plain ms, bound ms,
+    bound by, library ms) summed over the six blocks."""
+    from shennong_tpu_torch.ops import crepe_conv
+    from shennong_tpu_torch.weights import crepe_from_numpy
+
+    phase = 'crepe conv'
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, 'TF32 is on')
+    for name in ('crepe_conv<4>', 'crepe_conv<1>'):
+        registers, stores, loads = resources[name]
+        say(phase, f'ptxas {name}: {registers} registers, spill stores '
+            f'{stores} B, spill loads {loads} B')
+    crepe_conv_sass(phase)
+    reset_counters()
+    model = crepe_from_numpy(crepe_params('full', 24)).to('cuda')
+    nframes = 2048
+    frames = torch.as_tensor(np.random.RandomState(24).randn(
+        nframes, 1024).astype(np.float32), device='cuda')
+    x = frames[:, None, :]
+    worst, total = 0.0, [0.0, 0.0, 0.0, 0.0]
+    gaps = []
+    network_ops = 0
+    with torch.no_grad():
+        for i in range(6):
+            block = model.block(i)
+            conv = block.conv
+            out = crepe_conv.conv_block(x, block)
+            plain = crepe_conv.conv_block_plain(x, block)
+            exact = crepe_conv.conv_block_plain(x.double(), crepe_conv.Block(
+                copy.deepcopy(conv).double(),
+                *(t.double() for t in block[1:])))
+            scale = float(exact.abs().max())
+            gap = float((out - plain).abs().max()) / scale
+            gap_kernel = float((out.double() - exact).abs().max()) / scale
+            gap_plain = float((plain.double() - exact).abs().max()) / scale
+            worst = max(worst, gap)
+            gaps.append((gap, gap_kernel, gap_plain))
+            ms = cuda_ms(lambda: crepe_conv.conv_block(x, block), 5)
+            plain_ms = cuda_ms(
+                lambda: crepe_conv.conv_block_plain(x, block), 3)
+            padded = F.pad(x, crepe_conv.same_padding(
+                x.shape[-1], conv.stride[0], conv.kernel_size[0]))
+            library_ms = cuda_ms(lambda: conv(padded), 3)
+            read, taps = nonzero_taps(x.shape[-1], conv.stride[0],
+                                      conv.kernel_size[0])
+            ops = 2 * nframes * read * conv.out_channels * conv.in_channels
+            network_ops += ops
+            bound_ms = ops / PEAK_FLOPS_FP32 * 1e3
+            for j, value in enumerate((ms, plain_ms, bound_ms, library_ms)):
+                total[j] += value
+            say(phase, f'block {i + 1} [{nframes}, {conv.in_channels}, '
+                f'{x.shape[-1]}] -> {tuple(out.shape)}: kernel {ms:.3f} ms '
+                f'({ops / ms / 1e9:.2f} TFLOP/s of the taps that read a '
+                f'sample; {1 - read / taps:.4f} of the taps read padding), '
+                f'bound {bound_ms:.3f} ms at 67 TFLOP/s (share '
+                f'{bound_ms / ms:.3f}); cuDNN convolution alone '
+                f'(library_ms) {library_ms:.3f} ms '
+                f'({ops / library_ms / 1e9:.2f} TFLOP/s); plain chain '
+                f'{plain_ms:.3f} ms; largest gap over the largest |value| '
+                f'to the plain chain {gap:.3g}, to float64: kernel '
+                f'{gap_kernel:.3g}, plain {gap_plain:.3g}')
+            x = out
+        launches = launch_counts('crepe_conv')['crepe_conv']
+
+        def plain_network(frames):
+            x = frames[:, None, :]
+            for i in range(6):
+                x = crepe_conv.conv_block_plain(x, model.block(i))
+            x = x.transpose(1, 2).reshape(frames.shape[0], -1)
+            return torch.sigmoid(model.classifier(x))
+
+        net_ms = cuda_ms(lambda: model(frames), 3)
+        plain_net_ms = cuda_ms(lambda: plain_network(frames), 3)
+        salience, plain_salience = model(frames), plain_network(frames)
+    sal_gap = float((salience - plain_salience).abs().max())
+    top2 = plain_salience.topk(2, dim=-1).values
+    differ = salience.argmax(-1) != plain_salience.argmax(-1)
+    tie = float((top2[:, 0] - top2[:, 1])[differ].max()) if differ.any() \
+        else 0.0
+    ops = crepe_flops(model.channels) * nframes
+    # the classifier, over the last block's [N, C, 4]
+    network_ops += (2 * nframes * x.shape[1] * x.shape[2]
+                    * model.classifier.out_features)
+    say(phase, f'the whole network on {nframes} frames: kernels {net_ms:.3f} '
+        f'ms ({ops / net_ms / 1e9:.2f} TFLOP/s counting every tap, share '
+        f'of 67 TFLOP/s {ops / net_ms / 1e9 / 67:.3f}; the taps that read '
+        f'a sample and the classifier {network_ops / net_ms / 1e9:.2f} TFLOP/s, '
+        f'share {network_ops / net_ms / 1e9 / 67:.3f}), plain chain '
+        f'{plain_net_ms:.3f} ms; salience gap {sal_gap:.3g}; argmax bins '
+        f'differ on {int(differ.sum())} frames (largest top-2 gap there '
+        f'{tie:.3g}); {launches} launches in the phase\'s blocks; on {card}')
+    for i, (gap, gap_kernel, gap_plain) in enumerate(gaps):
+        check(gap_kernel <= max(2 * gap_plain, 1e-6),
+              f'block {i + 1}: the kernel is {gap_kernel:.3g} from float64, '
+              f'the plain chain {gap_plain:.3g}')
+    check(sal_gap < 1e-4, f'salience gap {sal_gap} to the plain chain')
+    check(tie < 1e-5, f'argmax bins differ at a top-2 gap of {tie}')
+    return worst, (*total[:3], 'operations', total[3])
 
 
 # ------------------------------------------------------------- bottleneck
@@ -4134,6 +4367,8 @@ def main():
             launches[name] += count
         launches.update(crepe_slice(card, workdir, entries))
         crepe_full(card, entries)
+        errors['crepe_conv'], times['crepe_conv'] = crepe_conv_phase(
+            card, resources)
         bottleneck_phase(card, workdir, entries)
         launches['dtw'], abx_ci = abx_phase(card)
         for name, count in examples_phase(
@@ -4155,6 +4390,8 @@ def main():
                 'shennong_tpu/eval/abx.py:65'),
         # host code in both packages: pass 2 of the pipeline
         'pass_two': ('shennong_tpu_torch/csrc/pass_two.cu', None),
+        # XLA's lax.conv in the JAX package: the CREPE CNN's conv blocks
+        'crepe_conv': ('shennong_tpu_torch/csrc/crepe_conv.cu', None),
     }
     print(json.dumps({'kernels': [
         {'name': name, 'route': 'cuda', 'source': source,
@@ -4162,8 +4399,9 @@ def main():
          'max_abs_err': errors[name], 'ms': times[name][0],
          'plain_ms': times[name][1], 'bound_ms': times[name][2],
          'bound_by': times[name][3],
-         # no single PyTorch call computes a Viterbi, a DTW or pass 2
-         'library_ms': None,
+         # no single PyTorch call computes a Viterbi, a DTW or pass 2;
+         # the conv blocks' is cuDNN's convolution alone
+         'library_ms': times[name][4] if len(times[name]) > 4 else None,
          # the DTW's pairs past DTW_TOL, each a proven near-tie, are
          # counted here and kept out of its max_abs_err
          **(dtw_ties if name == 'dtw' else {})}
@@ -4184,5 +4422,7 @@ if __name__ == '__main__':
     elif sys.argv[1:2] == ['--pass-two']:
         probe()
         pass_two_kernel_phase(build_kernels())
+    elif sys.argv[1:2] == ['--crepe-conv']:
+        crepe_conv_phase(probe(), build_kernels())
     else:
         main()

@@ -3,8 +3,12 @@ the CREPE processor.
 
 Counterpart of :mod:`shennong_tpu.models.crepe`: six Conv-BN-MaxPool
 blocks over 1024-sample frames followed by a 360-way sigmoid
-classifier (:class:`Crepe`). The convolutions run on cuDNN in full
-float32 (the package turns TF32 off). The weights are the npz files the
+classifier (:class:`Crepe`). Each block runs through
+:func:`shennong_tpu_torch.ops.crepe_conv.conv_block`: on the card one
+launch of a hand-written float32 CUDA kernel (padding, convolution,
+ReLU, batch norm and pooling fused; no cuDNN, no tensor cores), on the
+CPU the plain tensor chain. The classifier is a float32 ``Linear``
+(the package turns TF32 off). The weights are the npz files the
 JAX package converts from the published keras checkpoints, in the same
 keras layout (``conv{i}/kernel`` [W, Cin, Cout], ...), under this
 package's ``share/crepe/`` or at a path the caller gives;
@@ -23,6 +27,8 @@ import os
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from shennong_tpu_torch.ops.crepe_conv import Block, conv_block
 
 CAPACITY_MULTIPLIER = {
     'tiny': 4, 'small': 8, 'medium': 16, 'large': 24, 'full': 32}
@@ -78,22 +84,17 @@ class Crepe(torch.nn.Module):
         getattr(self, f'bn{layer}_beta').copy_(beta)
         getattr(self, f'bn{layer}_mean').copy_(mean)
 
+    def block(self, layer):
+        """The conv block ``layer`` (0-5) as :func:`conv_block` takes
+        it."""
+        return Block(self.convs[layer], getattr(self, f'bn{layer}_mean'),
+                     getattr(self, f'bn{layer}_scale'),
+                     getattr(self, f'bn{layer}_beta'))
+
     def _features(self, frames):
-        x = frames[:, None, :]
-        for i, conv in enumerate(self.convs):
-            # TensorFlow 'SAME': ceil(n / stride) outputs, the extra
-            # padding sample on the right
-            size = x.shape[-1]
-            stride, width = conv.stride[0], conv.kernel_size[0]
-            total = max((-(-size // stride) - 1) * stride + width - size, 0)
-            x = conv(F.pad(x, (total // 2, total - total // 2)))
-            # relu and batch norm in place: the first layer's activation
-            # is the largest tensor of the network
-            x.relu_()
-            x.sub_(getattr(self, f'bn{i}_mean')[:, None])
-            x.mul_(getattr(self, f'bn{i}_scale')[:, None])
-            x.add_(getattr(self, f'bn{i}_beta')[:, None])
-            x = F.max_pool1d(x, 2)
+        x = frames.contiguous()[:, None, :]
+        for i in range(len(self.convs)):
+            x = conv_block(x, self.block(i))
         # flatten as [N, W, C], the keras layout the classifier expects
         return x.transpose(1, 2).reshape(x.shape[0], -1)
 

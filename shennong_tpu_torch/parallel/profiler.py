@@ -83,12 +83,16 @@ Counters (key: seam; span over the same interval, if any):
   (``models.crepe.frame_count``), the frames its CNN ran (the real
   frames of every slice's rows, handed to ``forward_audio_chunk`` as
   ``counts``: the padding up to the frame bucket and the empty rows
-  never reach the CNN), and its slices;
+  never reach the CNN), and its slices; ``crepe_conv_kernel_frames``:
+  the frames whose six conv blocks ran in the conv kernel, counted
+  where the kernel launches (``ops.crepe_conv.conv_block``, at each
+  launch of the first block; none on the CPU);
 - ``launches.<kernel>``: the hand-written kernels' launches,
   ``launches.viterbi_forward`` and ``launches.viterbi_backtrace``
   (``ops.cuda_viterbi``), ``launches.banded_viterbi``
   (``ops.viterbi``), ``launches.dtw`` (``ops.dtw``),
-  ``launches.pass_two`` (``ops.pass_two``).
+  ``launches.pass_two`` (``ops.pass_two``), ``launches.crepe_conv``
+  (``ops.crepe_conv``, one a conv block).
 
 ``plan_s``, ``decode_wait_s``, ``dispatch_s``, ``fetch_s``, ``drain_s``
 and ``pass2_join_s`` are disjoint intervals of a fused call's thread,

@@ -8,7 +8,8 @@ the CPU.
   installed ``share/crepe/`` lookup;
   ``get_default_config`` does not emit the key;
 - the counters and spans of ``process_all`` and of the stage-wise pass
-  1's CREPE post-processing;
+  1's CREPE post-processing, and the first conv block taking each frame
+  the CNN ran once;
 - ``extract_features`` with ``crepe_pitch``'s configuration (at the
   'tiny' widths) and a seeded weights file, held by the ``crepe_pitch``
   harness against the float64 reference under the cell's own limits
@@ -154,6 +155,8 @@ def test_the_counters_of_process_all(tmp_path):
     frames = sum(crepe.frame_count(n + 1024, 160) for n in samples.values())
     assert counts['crepe_frames'] == frames
     assert counts['crepe_cnn_frames'] == frames
+    # the CPU runs the plain chain: no frame went through the conv kernel
+    assert 'crepe_conv_kernel_frames' not in counts
     assert counts['crepe_slices'] >= 1
     for key in ('crepe_load_s', 'crepe_cnn_s', 'crepe_decode_s'):
         assert counts[key] > 0, key
@@ -187,6 +190,33 @@ def cell_run(tmp_path_factory):
         return {name: collection[name].data for name in collection}
 
     return harness, entries, samples, outputs, workdir
+
+
+@pytest.mark.parametrize('decode', ['host', 'device'])
+def test_the_first_conv_block_takes_every_frame_the_cnn_ran(
+        tmp_path, monkeypatch, decode):
+    """On the card ``crepe_conv_kernel_frames`` is counted where the
+    first conv block launches, and ``crepe_conv_kernel_pct`` holds it to
+    ``crepe_cnn_frames``: over ``process_all`` the first block takes each
+    frame the CNN ran once. The CPU's plain chain stands in for the
+    kernel, the frames counted as the kernel's launch counts them."""
+    taken = []
+    plain = crepe.conv_block
+
+    def counted(x, block):
+        if block.conv.stride[0] == 4:
+            taken.append(x.shape[0])
+        return plain(x, block)
+
+    monkeypatch.setattr(crepe, 'conv_block', counted)
+    entries, _ = corpus.write_corpus(MIX, SEED, str(tmp_path), 'cpu')
+    proc = CrepePitchProcessor(
+        model_capacity='tiny', decode=decode,
+        weights=write_weights(tmp_path / 'w.npz', 5))
+    counters.reset()
+    proc.process_all(Utterances(entries), device='cpu')
+    assert taken and sum(taken) == counters.snapshot()['crepe_cnn_frames']
+
 
 
 def test_the_pipeline_holds_the_cells_limits(cell_run):

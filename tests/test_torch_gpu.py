@@ -29,7 +29,12 @@ and filterbank on the card against the CPU (1e-4, float32 convolutions
 and products summing in other orders), the CREPE CNN over each row's
 real frames against the same call over every frame (1e-5, and no
 synchronization inside the call), and the CREPE processor's host
-and device decodes on the card against the CPU. The DTW kernel of the
+and device decodes on the card against the CPU. The CREPE conv
+kernel is held block by block, for every capacity, against the plain
+chain on the card and against float64 (8 sqrt(K) ulps of the largest
+value, K the products an output sums), the 'full' network through it
+against the plain chain (1e-4, argmax bins equal but at near-ties),
+and its wrapper refuses what the kernel does not take. The DTW kernel of the
 ABX evaluator is held against its plain version on the card (1e-5 on
 real-valued costs or a near-tie proven in float64 by
 ``chip_smoke.dtw_against_plain``, at most one pair in 1000; equal on
@@ -657,6 +662,131 @@ def test_crepe_processor_matches_cpu(cuda_device):
         for name in cpu.keys():
             assert gpu[name].shape == cpu[name].shape
             assert np.abs(gpu[name].data - cpu[name].data).max() < 1e-3
+
+
+CREPE_CAPACITIES = ['tiny', 'small', 'medium', 'large', 'full']
+
+
+def crepe_block_inputs(model, nframes, seed):
+    """Random float32 inputs of each conv block of ``model`` at the shapes
+    the network gives it, with the first and last samples of every row
+    large, so that both 'SAME' edges meet real samples."""
+    rng = np.random.RandomState(seed)
+    shapes = [(1, 1024)] + [(cin, 128 >> i)
+                            for i, cin in enumerate(model.channels[:-1])]
+    inputs = []
+    for cin, size in shapes:
+        x = rng.randn(nframes, cin, size).astype(np.float32)
+        x[..., :2] = 3 * np.sign(x[..., :2])
+        x[..., -2:] = -3 * np.sign(x[..., -2:])
+        inputs.append(torch.from_numpy(x))
+    return inputs
+
+
+def float64_block(block):
+    from shennong_tpu_torch.ops.crepe_conv import Block
+
+    return Block(copy.deepcopy(block.conv).double(),
+                 *(t.double() for t in block[1:]))
+
+
+def crepe_plain_network(model, frames):
+    """The CNN through the plain chain of every block, on any device."""
+    from shennong_tpu_torch.ops.crepe_conv import conv_block_plain
+
+    x = frames[:, None, :]
+    for layer in range(6):
+        block = model.block(layer)
+        if frames.dtype == torch.float64:
+            block = float64_block(block)
+        x = conv_block_plain(x, block)
+    x = x.transpose(1, 2).reshape(frames.shape[0], -1)
+    classifier = model.classifier
+    if frames.dtype == torch.float64:
+        classifier = copy.deepcopy(classifier).double()
+    return torch.sigmoid(classifier(x))
+
+
+@pytest.mark.parametrize('nframes', [1, 7, 2049])
+@pytest.mark.parametrize('capacity', CREPE_CAPACITIES)
+def test_crepe_conv_kernel_matches_plain(cuda_device, capacity, nframes):
+    """Each conv block through the kernel against the plain chain on the
+    card (cuDNN), both against the chain in float64. Tolerance: the two
+    sum the K = Cin x width products of an output in float32 in other
+    orders, and rounding errors of a sum of K terms grow as sqrt(K) ulps
+    of its size; 8 sqrt(K) ulps of the largest value covers the tail
+    over millions of outputs, and the batch norm's scale (at most 1.42
+    here) stays inside it."""
+    from chip_smoke import crepe_params
+    from shennong_tpu_torch.ops.crepe_conv import conv_block, conv_block_plain
+    from shennong_tpu_torch.parallel.profiler import counters
+    from shennong_tpu_torch.weights import crepe_from_numpy
+
+    model = crepe_from_numpy(crepe_params(capacity, 7)).to(cuda_device)
+    reset_counters()
+    with torch.no_grad():
+        for layer, x in enumerate(crepe_block_inputs(model, nframes, 8)):
+            block = model.block(layer)
+            x = x.to(cuda_device)
+            out = conv_block(x, block)
+            plain = conv_block_plain(x, block)
+            exact = conv_block_plain(x.double(), float64_block(block))
+            assert out.shape == plain.shape
+            conv = block.conv
+            size = math.sqrt(conv.in_channels * conv.kernel_size[0])
+            bound = 8 * size * 2.0 ** -24 * float(exact.abs().max())
+            assert float((out.double() - exact).abs().max()) <= bound, layer
+            assert float((plain.double() - exact).abs().max()) <= bound, layer
+            assert float((out - plain).abs().max()) <= 2 * bound, layer
+    assert launch_counts('crepe_conv')['crepe_conv'] == 6
+    # counted at the first block's launch
+    assert counters.snapshot()['crepe_conv_kernel_frames'] == nframes
+
+
+def test_crepe_full_network_matches_plain(cuda_device):
+    """The 'full' network through the kernels against the plain chain on
+    the card: saliences within 1e-4 (float32 sums in other orders, as the
+    card against the CPU), argmax bins equal but where the float64
+    chain's two largest saliences lie within 1e-5 (a near-tie)."""
+    from chip_smoke import crepe_params
+    from shennong_tpu_torch.weights import crepe_from_numpy
+
+    model = crepe_from_numpy(crepe_params('full', 22)).to(cuda_device)
+    frames = torch.from_numpy(np.random.RandomState(9).randn(
+        300, 1024).astype(np.float32)).to(cuda_device)
+    with torch.no_grad():
+        salience = model(frames)
+        plain = crepe_plain_network(model, frames)
+        exact = crepe_plain_network(model, frames.double())
+    assert float((salience - plain).abs().max()) < 1e-4
+    top2 = exact.topk(2, dim=-1).values
+    near_tie = (top2[:, 0] - top2[:, 1]) < 1e-5
+    for ours in (salience, plain):
+        differ = ours.argmax(-1) != exact.argmax(-1)
+        assert not (differ & ~near_tie).any()
+
+
+def test_crepe_conv_rejects_what_the_kernel_does_not_take(cuda_device):
+    """The wrapper raises ValueError on another dtype, device, shape or a
+    non-contiguous input, and launches on what it takes."""
+    from shennong_tpu_torch.models import crepe
+    from shennong_tpu_torch.ops.crepe_conv import conv_block
+
+    model = crepe.load_model('tiny', cuda_device)
+    block = model.block(1)
+    x = torch.randn(4, 128, 128, device=cuda_device)
+    reset_counters()
+    assert conv_block(x, block).shape == (4, 16, 64)
+    assert launch_counts('crepe_conv')['crepe_conv'] == 1
+    for bad in (x.double(), x[:, :64].contiguous(), x[..., :96].contiguous(),
+                torch.randn(4, 128, 128, device=cuda_device).transpose(1, 2),
+                x.to('meta')):
+        with pytest.raises(ValueError):
+            conv_block(bad, block)
+    with pytest.raises(ValueError):
+        conv_block(torch.randn(2, 1, 1000, device=cuda_device),
+                   model.block(0))
+    assert launch_counts('crepe_conv')['crepe_conv'] == 1
 
 
 def test_bottleneck_network_matches_cpu(cuda_device):
