@@ -1,7 +1,9 @@
 """CREPE CNN: the share of the frames the CNN ran (counter
-``crepe_cnn_frames``: rows times the frame bucket of every slice of
-``CrepePitchProcessor.process_all``) that are padding, not an
-utterance's model frame (counter ``crepe_frames``), in percent."""
+``crepe_cnn_frames``: the frames of each slice of
+``CrepePitchProcessor.process_all`` that its convolutions ran) that are
+padding, not an utterance's model frame (counter ``crepe_frames``), in
+percent. Where the CNN runs on each row's real frames alone, it reads
+0."""
 
 
 def read(run):

@@ -4,6 +4,7 @@ a program without those counters gives)."""
 
 import pytest
 
+from perfbench.harness import DEFAULT
 from perfbench.manifest import Manifest
 from perfbench.tracing import TracedRun
 
@@ -40,11 +41,20 @@ def read(name, counters):
 
 
 def test_every_reader_is_in_the_manifest():
-    entries = {m['name']: m for m in Manifest().data['per_layer']}
+    manifest = Manifest()
+    entries = {m['name']: m for m in manifest.data['per_layer']}
+    # the cells of the Kaldi pipeline, whose fused route has the counters
+    # that some of these readers read alone
+    kaldi = {cell['name'] for cell in manifest.data['workloads']
+             if manifest.cell(cell['name']).config.get(
+                 'harness', DEFAULT) == DEFAULT}
+    assert kaldi
     for name in EXPECTED:
         assert entries[name]['source'] == 'program_counter', name
         assert entries[name]['moves'] == 'setup_s', name
-        assert 'workloads' not in entries[name], name
+        listed = entries[name].get('workloads')
+        if listed is not None:
+            assert listed and set(listed) <= kaldi, name
 
 
 @pytest.mark.parametrize('name', sorted(EXPECTED))
